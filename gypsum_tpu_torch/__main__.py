@@ -1,0 +1,3 @@
+from gypsum_tpu_torch.cli.main import main
+
+raise SystemExit(main())

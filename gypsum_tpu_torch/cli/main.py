@@ -1,0 +1,54 @@
+"""Argument parser and entry point of the port's CLI.
+
+Usage:
+    python -m gypsum_tpu_torch [--device cuda|cpu] replay --file capture.npy --until-fix
+
+The JAX CLI's other sub-commands (synth, acquire, rtk, bench) and the
+replay flags outside the GPS L1 C/A slice (GLONASS files, checkpoints,
+RINEX/NMEA export, the web UI, assisted start, notch, beamform, decimation)
+are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from gypsum_tpu_torch.cli.replay import cmd_replay
+from gypsum_tpu_torch.cli.sources import _add_file_source_args
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(levelname).1s %(name)s: %(message)s")
+    parser = argparse.ArgumentParser(prog="gypsum_tpu_torch")
+    parser.add_argument(
+        "--device",
+        choices=["cuda", "cpu"],
+        default="cuda",
+        help="where acquisition and tracking run (default cuda; fails when "
+        "no card is present)",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("replay", help="run the full receiver over a capture")
+    _add_file_source_args(p)
+    p.add_argument("--prns", nargs="*", help="restrict acquisition to these PRNs "
+                   "(reference: --only_acquire_satellite_ids)")
+    p.add_argument("--sbas", action="store_true",
+                   help="also search the SBAS GEO family (PRNs 120-138)")
+    p.add_argument("--duration", type=float, default=None, help="seconds of signal to process")
+    p.add_argument("--until-fix", action="store_true", help="stop at the first position fix")
+    p.add_argument("--block-ms", type=int, default=None, help="tracking block size")
+    p.add_argument("--hrc", action="store_true",
+                   help="multipath-resistant pseudoranges: double-delta (HRC) "
+                        "code-phase measurement instead of triangle vertex "
+                        "interpolation (needs >= 4 samples/chip to help)")
+    p.set_defaults(fn=cmd_replay)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

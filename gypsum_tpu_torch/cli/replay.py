@@ -1,0 +1,104 @@
+"""``replay`` subcommand: the full receiver over a GPS L1 C/A capture
+(reference parity: gypsum-cli.py's only mode).
+
+Port of gypsum_tpu/cli/replay.py for the single-band GPS replay. Its
+narration lines (acquisitions, drops, coasting, subframes, SBAS MT9 and the
+``FIX lat=... lon=...`` lines) are the JAX CLI's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+
+from gypsum_tpu_torch.cli.sources import _open_source
+
+_logger = logging.getLogger("gypsum_tpu_torch")
+
+
+def narrate(recv, report) -> None:
+    """Print one block's events in the JAX CLI's format."""
+    for hit in report.newly_acquired:
+        print(f"[{report.block_start:8.1f}s] acquired PRN {hit.prn}: "
+              f"doppler {hit.doppler_hz:+.1f} Hz, code phase {hit.code_phase_samples}, "
+              f"strength {hit.strength:.1f}")
+    for prn in report.dropped_prns:
+        print(f"[{report.block_start:8.1f}s] dropped PRN {prn} (lost lock)")
+    for prn in report.coasting_prns:
+        print(f"[{report.block_start:8.1f}s] PRN {prn} coasting open-loop "
+              f"(signal lost; NCOs held by predicted geometry)")
+    for prn in report.coast_recovered_prns:
+        print(f"[{report.block_start:8.1f}s] PRN {prn} signal returned: "
+              f"ranging resumed in place (vector coast)")
+    for prn, ev in report.subframes:
+        how = ev.decoded.handover
+        print(f"[{report.block_start:8.1f}s] PRN {prn} subframe "
+              f"{how.subframe_id.value} TOW {how.time_of_week_seconds:.0f}s")
+    for prn, blk in report.sbas_blocks:
+        if blk.message_type == 9:  # GEO navigation (1-line/s otherwise)
+            print(f"[{report.block_start:8.1f}s] SBAS PRN {prn} MT9 "
+                  f"GEO navigation @ {blk.leading_edge_timestamp:.3f}s")
+    if report.fix is not None:
+        f = report.fix
+        vel = ""
+        if f.velocity_ecef_mps is not None:
+            speed = float(np.linalg.norm(f.velocity_ecef_mps))
+            vel = f" |v|={speed:.2f}m/s drift={f.clock_drift_s_per_s * 1e9:.2f}ns/s"
+        # EKF coast fixes (< 4 satellites) are labeled so logs distinguish
+        # them from least-squares fixes.
+        tag = {"lsq": "FIX", "ekf": "COAST", "snapshot": "SNAPSHOT"}.get(f.kind, f.kind.upper())
+        pl = ""
+        if f.protection is not None:
+            pl = (f" hpl={f.protection['hpl_m']:.0f}m"
+                  f" vpl={f.protection['vpl_m']:.0f}m")
+        dgps = f" sbas-corrected={list(f.sbas_corrected)}" if f.sbas_corrected else ""
+        print(f"[{report.block_end:8.1f}s] {tag} lat={f.lat_deg:.6f} lon={f.lon_deg:.6f} "
+              f"alt={f.alt_m:.0f}m bias={f.clock_bias_s * 1e6:.2f}us{vel}{pl} "
+              f"sats={f.satellites_used}{dgps}")
+
+
+def cmd_replay(args) -> int:
+    from gypsum_tpu_torch.core.config import DEFAULT_CONFIG
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+
+    source = _open_source(args)
+    config = DEFAULT_CONFIG
+    if args.block_ms:
+        config = config.replace(tracking=config.tracking.__class__(block_size_ms=args.block_ms))
+    if args.hrc:
+        config = config.replace(
+            tracking=dataclasses.replace(config.tracking, code_phase_measurement="hrc")
+        )
+    prns = [int(p) for p in args.prns] if args.prns else None
+    if args.sbas:
+        from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS, SBAS_PRN_IDS
+
+        prns = sorted(set(prns or ALL_PRN_IDS) | set(SBAS_PRN_IDS))
+    receiver = Receiver(source, config, eligible_prns=prns, device=args.device)
+    receiver.add_block_listener(narrate)
+    receiver.run(max_seconds=args.duration, until_fix=args.until_fix)
+
+    print(f"processed {source.seconds_consumed:.1f}s; "
+          f"{receiver.subframe_count} subframes; "
+          f"{len(receiver.world.position_fixes)} fixes")
+    if receiver.spoofing is not None and receiver.spoofing.alerts:
+        kinds: dict[str, int] = {}
+        for a in receiver.spoofing.alerts:
+            kinds[a.kind] = kinds.get(a.kind, 0) + 1
+        print(f"SPOOFING ALERTS: {len(receiver.spoofing.alerts)} "
+              f"({', '.join(f'{k}: {v}' for k, v in sorted(kinds.items()))}) "
+              f"— first at t={receiver.spoofing.alerts[0].t:.1f}s")
+    # Predicted sky view from everything learned this run (decoded
+    # ephemerides + almanac pages relayed off the air, solve/almanac.py).
+    sky = receiver.world.predicted_sky(source.seconds_consumed)
+    if sky:
+        print("predicted sky (el/az/doppler; a=almanac-grade orbit):")
+        for prn in sorted(sky, key=lambda p: -sky[p].elevation_deg):
+            s = sky[prn]
+            vis = "up  " if s.visible else "DOWN"
+            print(f"  PRN {prn:2d} {vis} el {s.elevation_deg:6.1f}  "
+                  f"az {s.azimuth_deg:5.1f}  doppler {s.doppler_hz:+7.1f} Hz"
+                  f"{'  a' if s.from_almanac else ''}")
+    return 0

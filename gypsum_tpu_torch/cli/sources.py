@@ -1,0 +1,83 @@
+"""Opening a capture for the CLI (file formats and sidecars).
+
+Port of gypsum_tpu/cli/sources.py for the GPS L1 C/A replay: ``.npy``
+captures and raw interleaved captures described by a ``.json`` sidecar or a
+named ``--format``. The decimating front end, the interference notch and the
+antenna-array beamformer are not ported yet (they raise), so a capture must
+arrive at the processing rate.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+
+import numpy as np
+
+from gypsum_tpu_torch.core.unported import unported
+
+PROCESSING_RATE = 2.046e6  # all signal processing runs at 2x the chip rate
+
+
+def _add_file_source_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--file", default=None, help="capture path (with .json sidecar) or .npy IQ")
+    p.add_argument("--rtlsdr", action="store_true",
+                   help="read live from an RTL-SDR dongle (needs pyrtlsdr; "
+                   "tunes L1, streams via the async USB callback)")
+    p.add_argument("--sample-rate", type=float, default=None,
+                   help="override sample rate (else from sidecar; 2.046e6 for .npy)")
+    p.add_argument("--format", default=None,
+                   help="named capture format (gnu_radio_2x/8x/16x, rtl_sdr, hackrf) "
+                   "instead of a sidecar (reference: radio_input.py INPUT_SOURCES)")
+
+
+def _open_source(args):
+    from gypsum_tpu_torch.io.sources import (
+        ArraySampleSource,
+        DecimatingSampleSource,
+        FileSampleSource,
+        RecordingInfo,
+        recording_info_for,
+    )
+
+    if getattr(args, "rtlsdr", False):
+        from gypsum_tpu_torch.io.sources import RtlSdrSampleSource
+
+        return RtlSdrSampleSource(sample_rate=args.sample_rate or 2.046e6)
+    if not args.file:
+        raise SystemExit("provide --file CAPTURE or --rtlsdr")
+    if args.file.endswith(".npy"):
+        if getattr(args, "format", None):
+            raise SystemExit(
+                "--format describes raw interleaved captures; .npy files carry "
+                "their own dtype (use --sample-rate or a .json sidecar for the rate)"
+            )
+        iq = np.load(args.file)
+        rate = args.sample_rate
+        if rate is None:
+            sidecar = pathlib.Path(args.file + ".json")
+            if sidecar.exists():
+                rate = float(json.loads(sidecar.read_text())["sample_rate"])
+            else:
+                rate = PROCESSING_RATE
+        if iq.ndim == 2:
+            raise unported("antenna-array captures (ops/beamform)")
+        source = ArraySampleSource(iq, rate)
+    else:
+        if getattr(args, "format", None):
+            info = recording_info_for(args.format, args.file)
+            if args.sample_rate:
+                import dataclasses
+
+                info = dataclasses.replace(info, sample_rate=args.sample_rate)
+        elif args.sample_rate:
+            info = RecordingInfo(path=pathlib.Path(args.file), sample_rate=args.sample_rate)
+        else:
+            info = RecordingInfo.from_sidecar(args.file)
+        source = FileSampleSource(info)
+    # Non-native rates go through the polyphase front end, which is not
+    # ported yet (it raises NotImplementedError).
+    if abs(source.attributes.sample_rate - PROCESSING_RATE) > 1e-6:
+        source = DecimatingSampleSource(source, PROCESSING_RATE)
+    return source

@@ -1,0 +1,121 @@
+"""Circular-correlation building blocks for acquisition and tracking.
+
+Torch counterpart of the JAX package's ops/correlate.py (the analogue of
+reference: gypsum/utils.py:59-108):
+
+- The acquisition sweep evaluates the whole [satellite x Doppler x code
+  phase] grid as batched FFTs. The sample FFT of each (Doppler, ms) is shared
+  by every satellite and the replica FFTs are precomputed constants.
+- The sweep loops over the M milliseconds and accumulates |correlation| in
+  place, so peak memory stays at [S, D, L] instead of [S, D, M, L].
+- Phases stay exact in float32: the wipeoff phasor is built from per-ms
+  phase offsets reduced mod one cycle, never from absolute stream time.
+
+The circulant-matmul sweep of the JAX package is a TPU design (a 256 MB
+bf16 table fed to the MXU); it is not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def replica_fft_conj_table(replica_table: np.ndarray) -> np.ndarray:
+    """conj(FFT) of each replica row: the constant multiplied into sample FFTs."""
+    return np.conj(np.fft.fft(replica_table, axis=-1)).astype(np.complex64)
+
+
+def circular_correlate(samples: torch.Tensor, replica_fft_conj: torch.Tensor) -> torch.Tensor:
+    """corr[s] = sum_l samples[l] * replica[(l - s) mod L], batched over any
+    leading dims (broadcasting). ``replica_fft_conj`` is conj(fft(replica))."""
+    return torch.fft.ifft(torch.fft.fft(samples) * replica_fft_conj)
+
+
+def doppler_wipeoff(
+    samples_ms: torch.Tensor,  # [M, L] complex64
+    dopplers: torch.Tensor,  # [D] float32 Hz
+    sample_rate: float,
+) -> torch.Tensor:
+    """Multiply each 1 ms chunk by e^{-j 2 pi f (t_ms + l/fs)} for every Doppler.
+
+    Returns [D, M, L]. The phase is continuous across the M chunks, with the
+    phase at each chunk start reduced mod one cycle so float32 never sees a
+    large absolute phase.
+    """
+    m_count, length = samples_ms.shape
+    dev = samples_ms.device
+    # Same float32 operation order as the reference: l / fs, then * f.
+    l_over_fs = torch.arange(length, dtype=torch.float32, device=dev) / sample_rate
+    intra = dopplers[:, None, None] * l_over_fs[None, None, :]  # [D, 1, L]
+    ms_per_chunk = length / sample_rate
+    t_chunk = torch.arange(m_count, dtype=torch.float32, device=dev) * ms_per_chunk
+    chunk_cycles = dopplers[:, None, None] * t_chunk[None, :, None]  # [D, M, 1]
+    chunk_cycles = chunk_cycles - torch.round(chunk_cycles)
+    phase = -2.0 * math.pi * (intra + chunk_cycles)
+    return samples_ms[None, :, :] * torch.complex(torch.cos(phase), torch.sin(phase))
+
+
+def noncoherent_acquisition_sweep(
+    samples_ms: torch.Tensor,  # [M, L] complex64
+    dopplers: torch.Tensor,  # [D] float32
+    prn_fft_conj: torch.Tensor,  # [S, L] complex64
+    sample_rate: float,
+) -> torch.Tensor:
+    """Non-coherently integrated correlation power over the full grid.
+
+    Returns [S, D, L] float32: for each satellite and Doppler bin, the sum
+    over the M millisecond chunks of |circular correlation| at every code
+    phase."""
+    shifted = doppler_wipeoff(samples_ms, dopplers, sample_rate)  # [D, M, L]
+    sample_ffts = torch.fft.fft(shifted, dim=-1)  # [D, M, L]
+    s_count, length = prn_fft_conj.shape
+    total = torch.zeros(
+        (s_count, dopplers.shape[0], length), dtype=torch.float32, device=samples_ms.device
+    )
+    for m in range(samples_ms.shape[0]):
+        corr = torch.fft.ifft(sample_ffts[None, :, m, :] * prn_fft_conj[:, None, :], dim=-1)
+        total += corr.abs()
+    return total
+
+
+def peak_strength(profile: torch.Tensor) -> torch.Tensor:
+    """Normalized peak strength of a correlation profile: peak / mean-of-rest
+    (reference: gypsum/utils.py:111-116). Batched over leading dims."""
+    peak = profile.amax(dim=-1)
+    n = profile.shape[-1]
+    mean_rest = (profile.sum(dim=-1) - peak) / (n - 1)
+    return peak / mean_rest
+
+
+def rolled_lag_window(
+    replica_tiled: torch.Tensor,  # [2L] — the replica concatenated with itself
+    code_phase: int,  # prompt roll, in samples
+    half_width: int,
+    length: int,
+) -> torch.Tensor:
+    """The [2K+1, L] matrix whose row k is the replica circularly rolled by
+    (code_phase + k - K) samples, i.e. lags prompt-K .. prompt+K.
+
+    roll(r, s)[l] = r[(l - s) mod L] = tiled[((L - s) mod L) + l], so each row
+    is a slice of the tiled replica (one gather, no FFT)."""
+    dev = replica_tiled.device
+    k = torch.arange(-half_width, half_width + 1, device=dev)
+    starts = torch.remainder(length - int(code_phase) - k, length)  # [2K+1]
+    idx = starts[:, None] + torch.arange(length, device=dev)[None, :]
+    return replica_tiled[idx]
+
+
+def lag_window_correlate(
+    samples: torch.Tensor,  # [L] complex64 — one ms, carrier already wiped off
+    replica_tiled: torch.Tensor,  # [2L] float32
+    code_phase: int,
+    half_width: int,
+) -> torch.Tensor:
+    """Correlations at the 2K+1 integer lags around the prompt code phase:
+    [2K+1] complex64 where index K is the prompt, K-1 early, K+1 late."""
+    length = samples.shape[-1]
+    window = rolled_lag_window(replica_tiled, code_phase, half_width, length)
+    return window.to(samples.dtype) @ samples

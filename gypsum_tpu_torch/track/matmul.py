@@ -1,0 +1,238 @@
+"""Two-phase block tracker: the block's correlations as one matmul, then the
+sequential loop-filter fixup.
+
+Torch port of gypsum_tpu/track/matmul.py.
+
+Phase 1 (one matrix product, no sequential dependence):
+    Wiping every millisecond with the BLOCK-START loop state (theta0, f0) and
+    rotating the result by the phase difference later is exact up to the
+    within-ms residual-Doppler ramp (amplitude factor >= 0.992 even at a
+    70 Hz pull-in excursion). So the wipeoff phasor folds into the replica
+    side and the sample block C [B, L] is shared by every channel:
+
+        W[s, l, j]     = rows[s, j, l] * e^{-j(theta0_s + 2 pi f0_s l / fs)}
+        corr0[b, s, j] = sum_l C[b, l] * W[s, l, j]
+
+    a dense [B, L] x [L, S * NLE] product with float32 output. It is a plain
+    matrix product, left to ``torch.mm`` as the JAX package left it to XLA.
+
+Phase 2 (sequential, tiny): kernel K1 (``ops/fixup.py``) walks the B
+milliseconds per channel, selecting the 2K+1 lags around the current prompt
+from the precomputed rows, rotating the prompt by
+alpha = (theta - theta0) + pi (f - f0) t_ms and running the discriminator
+and EMA updates.
+
+Reference analogue: the 1 kHz per-satellite loop of gypsum/tracker.py:264-389.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from gypsum_tpu_torch.core.config import TrackingConfig
+from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
+from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex
+from gypsum_tpu_torch.core.unported import unported
+from gypsum_tpu_torch.ops import fixup as fx
+
+
+def lag_window_size(config: TrackingConfig, samples_per_prn: int) -> int:
+    """NLE = 2 (K + margin) + 1: the block's lag-window rows per channel.
+    The margin is half the worst-case Doppler-aided code drift over the
+    block plus 8 samples of DLL slack (the window is centered on the
+    predicted mid-block code phase)."""
+    cfg = config
+    if cfg.lag_window_block_margin is not None:
+        margin = cfg.lag_window_block_margin
+    else:
+        f_aid = cfg.aiding_carrier_hz or GPS_L1_FREQUENCY_HZ
+        drift = 7000.0 / f_aid * samples_per_prn * cfg.block_size_ms
+        margin = int(np.ceil(drift / 2.0)) + 8
+    return 2 * (cfg.lag_window_half_width + margin) + 1
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with float32 output: bf16 operands on the card keep a float32
+    result (``out_dtype``), as ``preferred_element_type`` does in JAX."""
+    if a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a, b)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b)
+
+
+def make_matmul_track_block_fn(
+    config: TrackingConfig,
+    samples_per_prn: int,
+    sample_rate: float,
+    n_channels: int,
+    stream_of_channel: np.ndarray | None = None,
+    input_offset: float = 0.0,
+    device: torch.device = torch.device("cpu"),
+):
+    """Build the two-phase block tracker on ``device``.
+
+    Returns ``f(state, samples_block, replicas_wide) -> (state', outputs)``:
+    ``state`` is a TrackState of [S] leaves (numpy or tensors),
+    ``samples_block`` [B, L, 2] planes of any dtype or [B, L] complex (farm:
+    [B, N, L, 2] / [B, N, L]) on ``device``, ``replicas_wide`` [S, >= 2L + 2K]
+    float32 on ``device``; the new state has [S] tensor leaves and the
+    outputs are a TrackBlockOutputs of [B, S] tensors. ``f.packed`` returns
+    the outputs as one [B, N_OUT, S] float32 tensor instead.
+    """
+    from gypsum_tpu_torch.track.loop import TrackBlockOutputs, TrackState
+
+    cfg = config
+    length = int(samples_per_prn)
+    fs = float(sample_rate)
+    k_half = cfg.lag_window_half_width
+    f_aid = cfg.aiding_carrier_hz or GPS_L1_FREQUENCY_HZ
+    aiding_scale = (length / f_aid) if cfg.carrier_aiding else 0.0
+    n_lags_eff = lag_window_size(cfg, length)
+    k_eff = (n_lags_eff - 1) // 2
+    params = fx.FixupParams.from_config(cfg, length, fs)
+
+    backend = cfg.fixup_backend
+    if backend not in (None, "pallas", "scan"):
+        raise ValueError(f"unknown fixup_backend {backend!r} (pallas | scan | None)")
+    if backend == "scan" and device.type == "cuda":
+        raise unported("the scan fixup on the card (fixup_backend='scan')")
+
+    # bf16 operands keep phase 1 on the card's tensor cores; on the CPU they
+    # are rounded to bf16 and multiplied in float32, which is the same
+    # bf16-in / float32-out product.
+    bf16 = cfg.matmul_tracker_bf16
+
+    def to_mm(x: torch.Tensor) -> torch.Tensor:
+        if not bf16:
+            return x
+        x = x.to(torch.bfloat16)
+        return x if x.is_cuda else x.to(torch.float32)
+
+    l_over_fs = torch.from_numpy((np.arange(length) / fs).astype(np.float32)).to(device)
+
+    farm_idx = None
+    if stream_of_channel is not None:
+        farm_idx = torch.as_tensor(np.asarray(stream_of_channel, dtype=np.int64), device=device)
+        if farm_idx.shape != (n_channels,):
+            raise ValueError(f"stream_of_channel must have shape ({n_channels},)")
+
+    def build_rows(replicas_wide: torch.Tensor, state: TrackState):
+        """Block-static lag window [S, NLE, L] in ascending lag order,
+        centered on the predicted mid-block code phase; also cpi0 [S]."""
+        predicted_mid = -aiding_scale * state.doppler * (cfg.block_size_ms / 2.0)
+        cpi0 = torch.remainder(torch.floor(state.code_phase + predicted_mid).to(torch.int64), length)
+        base0 = torch.remainder(length - cpi0 - k_eff, length)
+        w2 = torch.cat([replicas_wide[:, : 2 * length], replicas_wide[:, : 2 * k_eff]], dim=1)
+        span = torch.arange(length + 2 * k_eff, device=device)
+        win = torch.gather(w2, 1, base0[:, None] + span[None, :])  # [S, L + 2K_eff]
+        # Row k of the unfold starts at base0 + k: the replica rolled by
+        # (cp0 + K_eff - k), a descending lag order; flip to ascending.
+        rows = win.unfold(1, length, 1).flip(1)  # [S, NLE, L]
+        return rows, cpi0
+
+    def correlate_block(rows: torch.Tensor, state: TrackState, chunks: torch.Tensor):
+        """Phase 1: all-lag correlations for every millisecond at once.
+        chunks: [B, L] complex (or [B, N, L] farm). Returns corr_r, corr_i
+        [B, S, NLE] float32."""
+        phase0 = state.carrier_phase[:, None] + (
+            2.0 * math.pi * (state.doppler + state.carrier_offset)[:, None] * l_over_fs[None, :]
+        )  # [S, L]
+        c0, s0 = torch.cos(phase0), torch.sin(phase0)
+        rows_lj = rows.transpose(1, 2)  # [S, L, NLE]
+        w_r = to_mm(rows_lj * c0[:, :, None])
+        w_i = to_mm(-rows_lj * s0[:, :, None])
+        cr = to_mm(chunks.real.contiguous())
+        ci = to_mm(chunks.imag.contiguous())
+        s_count = rows.shape[0]
+        if farm_idx is None:
+            # corr = c . W with complex c and W: re = cr.wr - ci.wi,
+            # im = cr.wi + ci.wr; all four products as ONE matmul
+            # [2B, L] x [L, 2 S NLE].
+            b_count = chunks.shape[0]
+            w = torch.stack([w_r, w_i]).permute(2, 0, 1, 3).reshape(length, -1)
+            prod = _mm_f32(torch.cat([cr, ci]), w).reshape(2, b_count, 2, s_count, n_lags_eff)
+            corr_r = prod[0, :, 0] - prod[1, :, 1]
+            corr_i = prod[0, :, 1] + prod[1, :, 0]
+        else:
+            cr_s = cr[:, farm_idx].transpose(0, 1).contiguous()  # [S, B, L]
+            ci_s = ci[:, farm_idx].transpose(0, 1).contiguous()
+            corr_r = (_bmm_f32(cr_s, w_r) - _bmm_f32(ci_s, w_i)).transpose(0, 1)
+            corr_i = (_bmm_f32(cr_s, w_i) + _bmm_f32(ci_s, w_r)).transpose(0, 1)
+        return corr_r.contiguous(), corr_i.contiguous()
+
+    def phase1(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
+        """The state as [S] device tensors, the fixup's initial carry
+        [N_CARRY, S] and the block's correlations corr_r, corr_i
+        [B, S, NLE]."""
+        # Host (numpy) leaves are copied: the bank edits its host state in place.
+        state = TrackState(*(
+            (torch.tensor(a) if isinstance(a, np.ndarray) else a).to(device).reshape(-1)
+            for a in state
+        ))
+        if samples_block.is_complex():
+            chunks = samples_block.to(torch.complex64)
+        else:
+            chunks = to_complex(dequantize_planes(samples_block, input_offset))
+        rows, cpi0 = build_rows(replicas_wide, state)
+        corr_r, corr_i = correlate_block(rows, state, chunks)  # [B, S, NLE]
+
+        # The phase-1 wipeoff reference is the block-start state.
+        f32 = torch.float32
+        init = torch.stack([
+            state.code_phase.to(f32), state.carrier_phase.to(f32), state.doppler.to(f32),
+            state.ema_err.to(f32), state.ema_err_sq.to(f32), state.ema_quality.to(f32),
+            state.step_count.to(f32), state.lost.to(f32), cpi0.to(f32),
+            state.carrier_phase.to(f32), state.doppler.to(f32), state.carrier_offset.to(f32),
+        ])  # [N_CARRY, S]
+        return state, init, corr_r, corr_i
+
+    def track_block_packed(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
+        """(state', outs [B, N_OUT, S] float32): the fixup's outputs as it
+        wrote them, rows in ``fx.O_*`` order."""
+        state, init, corr_r, corr_i = phase1(state, samples_block, replicas_wide)
+        fin, outs = fx.fixup(init, corr_r, corr_i, params)
+        new_state = TrackState(
+            code_phase=fin[fx.CP],
+            carrier_phase=fin[fx.TH],
+            doppler=fin[fx.FD],
+            carrier_offset=state.carrier_offset,
+            ema_err=fin[fx.EERR],
+            ema_err_sq=fin[fx.EERR2],
+            ema_quality=fin[fx.EQ],
+            step_count=fin[fx.STEP].to(torch.int32),
+            lost=fin[fx.LOST] > 0.5,
+        )
+        return new_state, outs
+
+    def track_block(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
+        new_state, outs = track_block_packed(state, samples_block, replicas_wide)
+        outputs = TrackBlockOutputs(
+            prompt_i=outs[:, fx.O_PI],
+            prompt_q=outs[:, fx.O_PQ],
+            code_phase=outs[:, fx.O_CP],
+            code_phase_measured=outs[:, fx.O_CPM],
+            doppler=outs[:, fx.O_FD],
+            carrier_phase=outs[:, fx.O_TH],
+            pll_error=outs[:, fx.O_PLL],
+            dll_error=outs[:, fx.O_DLL],
+            locked=outs[:, fx.O_LOCKED] > 0.5,
+            quality=outs[:, fx.O_QUAL],
+            lost=outs[:, fx.O_LOST] > 0.5,
+        )
+        return new_state, outputs
+
+    # The packed form is what the bank carries to the host in one copy;
+    # phase 1 and the fixup's constants on their own hold the fixup kernel
+    # against its plain version on real correlations.
+    track_block.packed = track_block_packed
+    track_block.phase1 = phase1
+    track_block.fixup_params = params
+    return track_block

@@ -1,0 +1,148 @@
+"""The port (gypsum_tpu_torch) and chip_smoke.py stand alone: no JAX, nothing
+of the JAX package, and no quiet fall back to the CPU when CUDA is asked for.
+
+The import check runs in a subprocess: tests/conftest.py imports JAX into
+this test process.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "gypsum_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import gypsum_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gypsum_tpu_torch.__path__, "gypsum_tpu_torch.")]
+for name in names:
+    if not name.endswith("__main__"):
+        importlib.import_module(name)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib") or k == "gypsum_tpu" or k.startswith("gypsum_tpu."))
+print(len(names), bad)
+"""
+
+
+def _port_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_port_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    n_modules, bad = proc.stdout.strip().rsplit("\n", 1)[-1].split(" ", 1)
+    assert int(n_modules) >= 40
+    assert bad == "[]", f"JAX or the JAX package was loaded: {bad}"
+
+
+_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|gypsum_tpu)(?!\w)", re.MULTILINE)
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_has_no_jax_or_reference_import(path):
+    hits = _FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path}: {hits}"
+
+
+def test_cuda_kernels_are_in_the_repo():
+    for name in ("fixup", "peak_reduce"):
+        src = (PORT / "csrc" / f"{name}.cu").read_text()
+        assert 'extern "C"' in src and "cudaGetLastError" in src
+        assert "__global__" in src
+
+
+def _needs_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device='cuda' is valid here")
+
+
+def test_resolve_device_raises_without_a_card():
+    from gypsum_tpu_torch.core.device import resolve_device
+
+    _needs_no_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def _build_acquisition():
+    from gypsum_tpu_torch.acquire.engine import AcquisitionEngine
+
+    return AcquisitionEngine(2.046e6, 2046)
+
+
+def _build_bank():
+    from gypsum_tpu_torch.track.loop import TrackerBank
+
+    return TrackerBank(2.046e6, 2046)
+
+
+def _build_receiver():
+    from gypsum_tpu_torch.io.sources import ArraySampleSource
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+
+    return Receiver(ArraySampleSource(np.zeros(2046 * 20, np.complex64), 2.046e6))
+
+
+@pytest.mark.parametrize("build", [_build_acquisition, _build_bank, _build_receiver])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(build):
+    _needs_no_card()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        build()
+
+
+def test_cli_default_device_raises_without_a_card(tmp_path):
+    from gypsum_tpu_torch.cli.main import main
+
+    _needs_no_card()
+    capture = tmp_path / "noise.npy"
+    np.save(capture, np.zeros(2046 * 20, np.complex64))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        main(["replay", "--file", str(capture)])
+
+
+def test_chip_smoke_fails_without_a_card():
+    _needs_no_card()
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, env=_port_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("name", ["DecimatingSampleSource", "NotchingSampleSource"])
+def test_unported_front_ends_raise(name):
+    from gypsum_tpu_torch.io import sources
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(sources, name)(sources.ArraySampleSource(np.zeros(2046, np.complex64), 2.046e6), 2.046e6)
+
+
+def test_cli_capture_needing_resampling_raises(tmp_path):
+    from gypsum_tpu_torch.cli.main import main
+
+    capture = tmp_path / "fast.npy"
+    np.save(capture, np.zeros(4092 * 20, np.complex64))
+    with pytest.raises(NotImplementedError, match="decimating"):
+        main(["--device", "cpu", "replay", "--file", str(capture), "--sample-rate", "4.092e6"])

@@ -1,0 +1,190 @@
+"""The slice as a whole: the port's Receiver(device="cpu") against the JAX
+Receiver on the 4-satellite, 23 s cold-start scene of
+tests/test_end_to_end.py, held to the parity ladder of
+tests/test_multichip_receiver.py (equal acquisitions, > 99.9 % pseudosymbol
+sign agreement, equal subframe streams, equal fix epochs and satellite sets,
+positions within 1 m), and the port's CLI replay to a fix.
+
+Both receivers run phase 1 in float32 (matmul_tracker_bf16=False): the
+comparison is of the algorithm, not of bf16 rounding.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from gypsum_tpu.core.config import ReceiverConfig as JaxReceiverConfig
+from gypsum_tpu.io.sources import ArraySampleSource as JaxArraySource
+from gypsum_tpu.runtime.receiver import Receiver as JaxReceiver
+from gypsum_tpu.signal.constellation import ConstellationSatellite, synthesize_constellation
+from gypsum_tpu.solve.geodesy import lla_to_ecef
+from gypsum_tpu_torch.core.config import ReceiverConfig
+from gypsum_tpu_torch.io.sources import ArraySampleSource
+from gypsum_tpu_torch.runtime.receiver import Receiver
+from tests.ephemeris_fixtures import TEST_EPHEMERIDES
+
+ROOT = Path(__file__).resolve().parent.parent
+FS = 2.046e6
+TRUTH_LLA = (51.5, -0.1, 80.0)
+GPS_T0 = 21600.0
+PRNS = [25, 28, 31, 32]
+
+
+@pytest.fixture(scope="module")
+def scene():
+    rx = lla_to_ecef(*TRUTH_LLA)
+    sats = [
+        ConstellationSatellite(prn=p, ephemeris=TEST_EPHEMERIDES[i], amplitude=0.22)
+        for i, p in enumerate(PRNS)
+    ]
+    iq, _ = synthesize_constellation(
+        sats, rx, gps_start_time_sow=GPS_T0, duration_s=23.0,
+        sample_rate=FS, noise_sigma=0.35, subframe_pattern="123",
+    )
+    return rx, iq
+
+
+@pytest.fixture(scope="module")
+def both_receivers(scene):
+    rx, iq = scene
+    jcfg = JaxReceiverConfig()
+    jcfg = jcfg.replace(tracking=dataclasses.replace(jcfg.tracking, matmul_tracker_bf16=False))
+    ref = JaxReceiver(JaxArraySource(iq, FS), jcfg)
+    ref.run()
+    cfg = ReceiverConfig()
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, matmul_tracker_bf16=False))
+    port = Receiver(ArraySampleSource(iq, FS), cfg, device="cpu")
+    port.run()
+    return rx, ref, port
+
+
+def _signs_by_prn(recv):
+    out: dict[int, list[np.ndarray]] = {}
+    for report in recv.block_reports:
+        for obs in report.observations:
+            out.setdefault(obs.prn, []).append(np.asarray(obs.pseudosymbol_signs))
+    return {p: np.concatenate(v) for p, v in out.items()}
+
+
+def test_acquisition_parity(both_receivers):
+    _, ref, port = both_receivers
+    a = [(h.prn, h.code_phase_samples) for h in ref.block_reports[0].newly_acquired]
+    b = [(h.prn, h.code_phase_samples) for h in port.block_reports[0].newly_acquired]
+    assert b == a
+    assert {p for p, _ in b} >= set(PRNS)
+
+
+def test_pseudosymbol_stream_parity(both_receivers):
+    _, ref, port = both_receivers
+    a, b = _signs_by_prn(ref), _signs_by_prn(port)
+    assert set(a) == set(b)
+    for prn in PRNS:
+        assert a[prn].shape == b[prn].shape
+        agree = float(np.mean(a[prn] == b[prn]))
+        assert agree > 0.999, f"PRN {prn}: sign agreement {agree:.4%}"
+
+
+def test_subframe_decode_parity(both_receivers):
+    _, ref, port = both_receivers
+
+    def stream(recv):
+        return [
+            (prn, ev.decoded.handover.tow_count, ev.decoded.handover.subframe_id.value)
+            for report in recv.block_reports
+            for prn, ev in report.subframes
+        ]
+
+    a, b = stream(ref), stream(port)
+    assert b == a and len(b) >= 3 * len(PRNS)
+
+
+def test_fix_parity(both_receivers):
+    rx, ref, port = both_receivers
+    fa = [r.fix for r in ref.block_reports if r.fix is not None]
+    fb = [r.fix for r in port.block_reports if r.fix is not None]
+    assert fa and fb, "both replays must fix"
+    assert len(fa) == len(fb)
+    for sa, sb in zip(fa, fb):
+        assert sa.receiver_timestamp == sb.receiver_timestamp
+        assert sorted(sa.satellites_used) == sorted(sb.satellites_used)
+        assert np.linalg.norm(sa.ecef - sb.ecef) < 1.0
+    assert np.linalg.norm(fb[-1].ecef - rx) < 100.0
+    assert port.world.receiver_clock_slide == pytest.approx(ref.world.receiver_clock_slide, abs=1e-6)
+
+
+def test_receiver_is_not_pipelined_on_cpu(both_receivers):
+    _, _, port = both_receivers
+    assert port.device.type == "cpu"
+    assert port._pipeline_depth == 0  # depth 1 is the card's default
+    assert port.bank.pending_blocks == 0
+
+
+def test_cli_replay_prints_a_fix(scene, tmp_path):
+    rx, iq = scene
+    capture = tmp_path / "scene.npy"
+    np.save(capture, iq)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-m", "gypsum_tpu_torch", "--device", "cpu", "replay",
+         "--file", str(capture), "--until-fix"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    fixes = re.findall(r"FIX lat=(-?[\d.]+) lon=(-?[\d.]+) alt=(-?\d+)m", proc.stdout)
+    assert fixes, proc.stdout[-2000:]
+    lat, lon, alt = (float(v) for v in fixes[-1])
+    assert np.linalg.norm(lla_to_ecef(lat, lon, alt) - rx) < 100.0
+    assert "acquired PRN 25" in proc.stdout
+
+
+@pytest.mark.parametrize("band", ["glonass", "glonass_l2"])
+def test_glonass_bands_raise(band):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Receiver(ArraySampleSource(np.zeros(4092 * 20, np.complex64), 4.092e6),
+                 band=band, device="cpu")
+
+
+def test_deep_coast_measurement_raises_where_it_is_needed():
+    """The coast tier's deep measurement (track/deepmeas) is not ported: a
+    coasting channel with retained raw IQ and a prediction raises instead
+    of silently coasting unmeasured."""
+    from types import SimpleNamespace
+
+    recv = Receiver(ArraySampleSource(np.zeros(2046 * 20, np.complex64), FS), device="cpu")
+    assert recv.config.tracking.coast_deep_measurement
+    obs, pipe = SimpleNamespace(prn=25), SimpleNamespace()
+    assert recv._deep_coast_measurement(obs, pipe, 0.0, 1000) is None  # no raw block kept
+    recv._coast_raw[0] = np.zeros((1000, 2046), np.complex64)
+    recv._coast_prediction = lambda prn, pipe, t: (1e-4, 100.0)
+    with pytest.raises(NotImplementedError, match="deep coast measurement"):
+        recv._deep_coast_measurement(obs, pipe, 0.0, 1000)
+
+
+def test_async_upload_gives_the_same_observations():
+    """TrackingConfig.async_upload reads one block ahead and starts its
+    upload early (on the card: pinned memory, a side stream); what the
+    receiver observes must not change."""
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.signal.synth import SyntheticSatellite, synthesize_iq
+
+    sat = SyntheticSatellite(prn=9, doppler_hz=800.0, delay_samples=500, amplitude=0.3)
+    iq = synthesize_iq([sat], 600 * 2046, FS, noise_sigma=0.3, seed=12)
+
+    def run(async_upload):
+        cfg = ReceiverConfig(tracking=TrackingConfig(block_size_ms=200, async_upload=async_upload))
+        recv = Receiver(ArraySampleSource(iq, FS), cfg, eligible_prns=[9], device="cpu")
+        recv.run()
+        return [(o.prn, o.prompts) for r in recv.block_reports for o in r.observations]
+
+    a, b = run(False), run(True)
+    assert len(a) == len(b) == 3
+    for (pa, xa), (pb, xb) in zip(a, b):
+        assert pa == pb == 9
+        np.testing.assert_array_equal(xa, xb)
