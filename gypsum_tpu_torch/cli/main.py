@@ -5,8 +5,9 @@ Usage:
 
 The JAX CLI's other sub-commands (synth, acquire, rtk, bench) and the
 replay flags outside the GPS L1 C/A slice (GLONASS files, checkpoints,
-RINEX/NMEA export, the web UI, assisted start, notch, beamform, decimation)
-are not ported yet (ROADMAP.md).
+RINEX/NMEA export, the web UI, assisted start, notch, beamform) are not
+ported yet (ROADMAP.md). Captures at other rates than 2.046 Msps go through
+the decimating front end (``--sample-rate``, ``--format`` or the sidecar).
 """
 
 from __future__ import annotations

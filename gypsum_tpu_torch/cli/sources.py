@@ -2,9 +2,9 @@
 
 Port of gypsum_tpu/cli/sources.py for the GPS L1 C/A replay: ``.npy``
 captures and raw interleaved captures described by a ``.json`` sidecar or a
-named ``--format``. The decimating front end, the interference notch and the
-antenna-array beamformer are not ported yet (they raise), so a capture must
-arrive at the processing rate.
+named ``--format``. A capture at another rate than 2.046 Msps goes through
+the decimating front end on the chosen device. The interference notch and
+the antenna-array beamformer are not ported yet (they raise).
 """
 
 from __future__ import annotations
@@ -76,8 +76,7 @@ def _open_source(args):
         else:
             info = RecordingInfo.from_sidecar(args.file)
         source = FileSampleSource(info)
-    # Non-native rates go through the polyphase front end, which is not
-    # ported yet (it raises NotImplementedError).
+    # Non-native rates go through the decimating/resampling front end.
     if abs(source.attributes.sample_rate - PROCESSING_RATE) > 1e-6:
-        source = DecimatingSampleSource(source, PROCESSING_RATE)
+        source = DecimatingSampleSource(source, PROCESSING_RATE, device=args.device)
     return source

@@ -2,8 +2,8 @@
 
 The host-side modules of this package are copies of the JAX package's. A
 few of their code paths reach modules outside the ported slice (GLONASS
-orbits and navigation strings, the decimating and notching front ends, the
-deep coast measurement). Those paths raise this error at the point of use
+orbits and navigation strings, the notching front end, the deep coast
+measurement). Those paths raise this error at the point of use
 instead of doing less than the reference does.
 """
 

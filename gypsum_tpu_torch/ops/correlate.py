@@ -108,6 +108,32 @@ def rolled_lag_window(
     return replica_tiled[idx]
 
 
+def lag_window(
+    replicas_wide: torch.Tensor,  # [S, >= 2L + 2K] tiled replicas, one row per channel
+    cp_int: torch.Tensor,  # [S] int64 — the code phase the window is centered on
+    length: int,
+    half_width: int,
+) -> torch.Tensor:
+    """Per channel, the L + 2K tiled-replica samples from
+    ``(L - cp_int - K) mod L``: [S, L + 2K]. Sub-slice k (samples k .. k + L)
+    is the replica rolled by (cp_int + K - k), so the slices run through
+    lags cp_int - K .. cp_int + K in DESCENDING order. Rows shorter than
+    2L + 2K (a window wider than the bank's per-ms one) are re-tiled first."""
+    need = 2 * length + 2 * half_width
+    if replicas_wide.shape[1] < need:
+        replicas_wide = torch.cat(
+            [replicas_wide[:, : 2 * length], replicas_wide[:, : 2 * half_width]], dim=1)
+    base = torch.remainder(length - cp_int - half_width, length)
+    span = torch.arange(length + 2 * half_width, device=replicas_wide.device)
+    return torch.gather(replicas_wide, 1, base[:, None] + span[None, :])
+
+
+def ascending_lag_rows(window: torch.Tensor, length: int) -> torch.Tensor:
+    """The sub-slices of ``lag_window``'s [S, L + 2K] as a [S, 2K+1, L] view
+    in ASCENDING lag order: row j is lag cp_int - K + j."""
+    return window.unfold(1, length, 1).flip(1)
+
+
 def lag_window_correlate(
     samples: torch.Tensor,  # [L] complex64 — one ms, carrier already wiped off
     replica_tiled: torch.Tensor,  # [2L] float32

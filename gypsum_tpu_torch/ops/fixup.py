@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -102,7 +103,7 @@ class FixupParams:
 
 
 class _FixupParams(ctypes.Structure):
-    """C layout of csrc/fixup.cu's FixupParams."""
+    """C layout of csrc/loop_filter.cuh's FixupParams."""
 
     _fields_ = [
         *((name, ctypes.c_float) for name in (
@@ -116,11 +117,164 @@ class _FixupParams(ctypes.Structure):
     ]
 
 
+def c_params(p: FixupParams) -> _FixupParams:
+    """``p`` in the kernels' C layout."""
+    return _FixupParams(
+        kp_locked=p.kp_locked, ki_locked=p.ki_locked, kp_pullin=p.kp_pullin,
+        ki_pullin=p.ki_pullin, lam_err=p.lam_err, lam_q=p.lam_q,
+        # log1p(-lambda) in double, rounded once to float (as the reference).
+        log1m_lam_err=math.log1p(-p.lam_err), log1m_lam_q=math.log1p(-p.lam_q),
+        aiding_scale=p.aiding_scale, dll_gain=p.dll_gain, t_ms=p.t_ms,
+        max_err_var=p.max_err_var, min_quality=p.min_quality,
+        quality_drop=p.quality_drop, w_chip=p.w_chip,
+        lock_window_ms=p.lock_window_ms, watchdog_warmup_ms=p.watchdog_warmup_ms,
+        length=p.length, k_half=p.k_half, use_hrc=int(p.use_hrc),
+    )
+
+
 FIXUP_KERNEL = CudaKernel(
     "fixup",
     "fixup_f32",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.POINTER(_FixupParams), ctypes.c_void_p],
 )
+
+
+class LoopCarry(NamedTuple):
+    """The loop filter's per-channel carry, [S] float32 tensors (``lost``
+    bool)."""
+
+    cp: torch.Tensor
+    th: torch.Tensor
+    fd: torch.Tensor
+    eerr: torch.Tensor
+    eerr2: torch.Tensor
+    eq: torch.Tensor
+    step: torch.Tensor
+    lost: torch.Tensor
+
+    @classmethod
+    def from_rows(cls, rows: torch.Tensor) -> "LoopCarry":
+        """From the first eight rows of a [N_CARRY, S] carry array."""
+        return cls(rows[CP], rows[TH], rows[FD], rows[EERR], rows[EERR2], rows[EQ],
+                   rows[STEP], rows[LOST] > 0.5)
+
+    def rows(self) -> list[torch.Tensor]:
+        """The eight carry rows, ``lost`` as float32."""
+        return [*self[:7], self.lost.to(torch.float32)]
+
+
+def select_lags(
+    all_r: torch.Tensor, all_i: torch.Tensor, cp: torch.Tensor, cpi0: torch.Tensor,
+    length: int, k_half: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The 2K+1 lags around the current prompt out of one millisecond's
+    all-lag correlations ``all_r``/``all_i`` [S, NLE] (ascending lag, window
+    centered on ``cpi0`` [S] int64), clipped to the window. Returns
+    ``(cp_int [S] int64, sel_r, sel_i [S, 2K+1])``."""
+    nle = all_r.shape[1]
+    k_eff = (nle - 1) // 2
+    half = length // 2
+    cp_int = torch.remainder(torch.floor(cp).to(torch.int64), length)
+    delta = torch.remainder(cp_int - cpi0 + half, length) - half
+    j = torch.clamp(delta + k_eff, k_half, nle - 1 - k_half)
+    idx = j[:, None] + torch.arange(-k_half, k_half + 1, device=all_r.device)[None, :]
+    return cp_int, torch.gather(all_r, 1, idx), torch.gather(all_i, 1, idx)
+
+
+def loop_filter_step(
+    carry: LoopCarry, sel_r: torch.Tensor, sel_i: torch.Tensor, cp_int: torch.Tensor,
+    nco_advance: torch.Tensor, p: FixupParams, alpha: torch.Tensor | None = None,
+) -> tuple[LoopCarry, torch.Tensor]:
+    """One millisecond of the loop filter for every channel, shared by the
+    fixup's plain version, the per-ms scan tracker (track/scan.py) and the
+    block kernel's plain version (ops/track_block.py).
+
+    ``sel_r``/``sel_i`` [S, 2K+1]: the correlations at lags prompt-K ..
+    prompt+K; ``cp_int`` [S]: the integer code phase they are centered on;
+    ``nco_advance`` [S]: the carrier NCO's advance over this ms in radians
+    (computed by the caller from the pre-update Doppler); ``alpha`` [S]: the
+    rotation from the wipeoff reference to the loop phase, or None when the
+    correlations were wiped with the loop phase itself. Returns the new
+    carry and this ms's outputs [N_OUT, S] (pre-update loop state)."""
+    k_half = p.k_half
+    n_lags = 2 * k_half + 1
+    length = p.length
+    two_pi = 2.0 * math.pi
+    cp, th, fd, eerr, eerr2, eq, step, lost = carry
+
+    power = sel_r * sel_r + sel_i * sel_i
+    early = power[:, k_half - 1]
+    late = power[:, k_half + 1]
+    peak_idx = torch.argmax(power, dim=-1)  # first index on ties
+    p0_r = torch.gather(sel_r, 1, peak_idx[:, None])[:, 0]
+    p0_i = torch.gather(sel_i, 1, peak_idx[:, None])[:, 0]
+
+    mag = torch.sqrt(power)
+
+    def take(o):
+        return torch.gather(mag, 1, torch.clamp(peak_idx + o, 0, n_lags - 1)[:, None])[:, 0]
+
+    r0, rp, rm = take(0), take(1), take(-1)
+    if p.use_hrc:
+        d1 = rm - rp
+        d2 = take(-2) - take(2)
+        frac = -p.w_chip * (d1 - 0.5 * d2) / (r0 + _EPS)
+        frac = torch.clamp(frac, -1.5, 1.5)
+    else:
+        frac = (rp - rm) / (2.0 * (r0 - torch.minimum(rp, rm)) + _EPS)
+        frac = torch.clamp(frac, -0.5, 0.5)
+    cp_meas = torch.remainder(
+        cp_int.to(torch.float32) + (peak_idx - k_half).to(torch.float32) + frac,
+        float(length),
+    )
+
+    if alpha is None:
+        i, q = p0_r, p0_i
+    else:
+        ca, sa = torch.cos(alpha), torch.sin(alpha)
+        i = p0_r * ca + p0_i * sa
+        q = p0_i * ca - p0_r * sa
+
+    dll_err = (early - late) / (early + late + _EPS)
+    new_cp = cp - p.dll_gain * dll_err
+    new_cp = new_cp - p.aiding_scale * fd
+    new_cp = torch.remainder(new_cp, float(length))
+
+    pll_err = (i * q) / (i * i + q * q + _EPS)
+    n = step + 1.0
+    corr_err = 1.0 - torch.exp(n * math.log1p(-p.lam_err))
+    corr_q = 1.0 - torch.exp(n * math.log1p(-p.lam_q))
+    ema_err = eerr + p.lam_err * (pll_err - eerr)
+    ema_err_sq = eerr2 + p.lam_err * (pll_err * pll_err - eerr2)
+    m_err = ema_err / corr_err
+    err_var = ema_err_sq / corr_err - m_err * m_err
+    quality_inst = (i * i - q * q) / (i * i + q * q + _EPS)
+    ema_q_raw = eq + p.lam_q * (quality_inst - eq)
+    ema_q = ema_q_raw / corr_q
+
+    warmed = step >= p.lock_window_ms
+    locked = warmed & (err_var < p.max_err_var) & (ema_q > p.min_quality)
+    kp = torch.where(locked, p.kp_locked, p.kp_pullin)
+    ki = torch.where(locked, p.ki_locked, p.ki_pullin)
+    new_th = torch.remainder(th + nco_advance + kp * pll_err, two_pi)
+    new_fd = fd + ki * pll_err
+
+    armed = step >= p.watchdog_warmup_ms
+    lost = lost | (armed & (ema_q < p.quality_drop))
+
+    out = torch.stack([
+        i, q, cp, cp_meas, fd, th, pll_err, dll_err,
+        locked.to(torch.float32), ema_q, lost.to(torch.float32),
+    ])
+    return LoopCarry(new_cp, new_th, new_fd, ema_err, ema_err_sq, ema_q_raw, n, lost), out
+
+
+def offset_cycle_fraction(off: torch.Tensor, t_ms: float) -> torch.Tensor:
+    """The FDMA offset's advance per ms, reduced mod one cycle before the
+    radian conversion (offset * t_ms is exactly representable; 2 pi times it
+    is not)."""
+    off_cycles = off * t_ms
+    return off_cycles - torch.round(off_cycles)
 
 
 def fixup_reference(
@@ -129,108 +283,23 @@ def fixup_reference(
     """Plain version: ``(final [N_CARRY, S], outs [B, N_OUT, S])`` from the
     carry ``init`` [N_CARRY, S] and the block's correlations
     ``corr_r``/``corr_i`` [B, S, NLE], all float32."""
-    b_count, s_count, nle = corr_r.shape
-    dev = corr_r.device
-    length = p.length
-    k_half = p.k_half
-    k_eff = (nle - 1) // 2
-    half = length // 2
-    n_lags = 2 * k_half + 1
+    b_count, s_count, _ = corr_r.shape
     two_pi = 2.0 * math.pi
-    log1m_err = math.log1p(-p.lam_err)
-    log1m_q = math.log1p(-p.lam_q)
-    lag_offsets = torch.arange(-k_half, k_half + 1, device=dev)
-
-    cp, th, fd = init[CP], init[TH], init[FD]
-    eerr, eerr2, eq = init[EERR], init[EERR2], init[EQ]
-    step, lost = init[STEP], init[LOST] > 0.5
+    carry = LoopCarry.from_rows(init)
     cpi0 = init[CPI0].to(torch.int64)
     th0, fd0, off = init[TH0], init[FD0], init[OFF]
-    # FDMA offset advance per ms, reduced mod one cycle before radians.
-    off_cycles = off * p.t_ms
-    off_frac = off_cycles - torch.round(off_cycles)
+    off_frac = offset_cycle_fraction(off, p.t_ms)
 
-    outs = torch.empty((b_count, N_OUT, s_count), dtype=torch.float32, device=dev)
+    outs = torch.empty((b_count, N_OUT, s_count), dtype=torch.float32, device=corr_r.device)
     for b in range(b_count):
-        row_r, row_i = corr_r[b], corr_i[b]  # [S, NLE]
-        cp_int = torch.remainder(torch.floor(cp).to(torch.int64), length)
-        delta = torch.remainder(cp_int - cpi0 + half, length) - half
-        j = torch.clamp(delta + k_eff, k_half, nle - 1 - k_half)
-        idx = j[:, None] + lag_offsets[None, :]  # [S, n_lags]
-        sel_r = torch.gather(row_r, 1, idx)
-        sel_i = torch.gather(row_i, 1, idx)
-
-        power = sel_r * sel_r + sel_i * sel_i
-        early = power[:, k_half - 1]
-        late = power[:, k_half + 1]
-        peak_idx = torch.argmax(power, dim=-1)  # first index on ties
-        p0_r = torch.gather(sel_r, 1, peak_idx[:, None])[:, 0]
-        p0_i = torch.gather(sel_i, 1, peak_idx[:, None])[:, 0]
-
-        mag = torch.sqrt(power)
-
-        def take(o):
-            return torch.gather(mag, 1, torch.clamp(peak_idx + o, 0, n_lags - 1)[:, None])[:, 0]
-
-        r0, rp, rm = take(0), take(1), take(-1)
-        if p.use_hrc:
-            d1 = rm - rp
-            d2 = take(-2) - take(2)
-            frac = -p.w_chip * (d1 - 0.5 * d2) / (r0 + _EPS)
-            frac = torch.clamp(frac, -1.5, 1.5)
-        else:
-            frac = (rp - rm) / (2.0 * (r0 - torch.minimum(rp, rm)) + _EPS)
-            frac = torch.clamp(frac, -0.5, 0.5)
-        cp_meas = torch.remainder(
-            cp_int.to(torch.float32) + (peak_idx - k_half).to(torch.float32) + frac,
-            float(length),
-        )
-
+        cp_int, sel_r, sel_i = select_lags(corr_r[b], corr_i[b], carry.cp, cpi0, p.length, p.k_half)
         # Rotate the prompt from the block-start wipeoff reference to the
         # loop phase: alpha = (theta - theta0) + pi (f - f0) t_ms.
-        alpha = (th - th0) + math.pi * (fd - fd0) * p.t_ms
-        ca, sa = torch.cos(alpha), torch.sin(alpha)
-        i = p0_r * ca + p0_i * sa
-        q = p0_i * ca - p0_r * sa
+        alpha = (carry.th - th0) + math.pi * (carry.fd - fd0) * p.t_ms
+        advance = two_pi * (carry.fd * p.t_ms + off_frac)
+        carry, outs[b] = loop_filter_step(carry, sel_r, sel_i, cp_int, advance, p, alpha)
 
-        dll_err = (early - late) / (early + late + _EPS)
-        new_cp = cp - p.dll_gain * dll_err
-        new_cp = new_cp - p.aiding_scale * fd
-        new_cp = torch.remainder(new_cp, float(length))
-
-        pll_err = (i * q) / (i * i + q * q + _EPS)
-        n = step + 1.0
-        corr_err = 1.0 - torch.exp(n * log1m_err)
-        corr_q = 1.0 - torch.exp(n * log1m_q)
-        ema_err = eerr + p.lam_err * (pll_err - eerr)
-        ema_err_sq = eerr2 + p.lam_err * (pll_err * pll_err - eerr2)
-        m_err = ema_err / corr_err
-        err_var = ema_err_sq / corr_err - m_err * m_err
-        quality_inst = (i * i - q * q) / (i * i + q * q + _EPS)
-        ema_q_raw = eq + p.lam_q * (quality_inst - eq)
-        ema_q = ema_q_raw / corr_q
-
-        warmed = step >= p.lock_window_ms
-        locked = warmed & (err_var < p.max_err_var) & (ema_q > p.min_quality)
-        kp = torch.where(locked, p.kp_locked, p.kp_pullin)
-        ki = torch.where(locked, p.ki_locked, p.ki_pullin)
-        new_th = torch.remainder(th + two_pi * (fd * p.t_ms + off_frac) + kp * pll_err, two_pi)
-        new_fd = fd + ki * pll_err
-
-        armed = step >= p.watchdog_warmup_ms
-        lost = lost | (armed & (ema_q < p.quality_drop))
-
-        outs[b] = torch.stack([
-            i, q, cp, cp_meas, fd, th, pll_err, dll_err,
-            locked.to(torch.float32), ema_q, lost.to(torch.float32),
-        ])
-        cp, th, fd = new_cp, new_th, new_fd
-        eerr, eerr2, eq, step = ema_err, ema_err_sq, ema_q_raw, n
-
-    fin = torch.stack([
-        cp, th, fd, eerr, eerr2, eq, step, lost.to(torch.float32),
-        init[CPI0], th0, fd0, off,
-    ])
+    fin = torch.stack([*carry.rows(), init[CPI0], th0, fd0, off])
     return fin, outs
 
 
@@ -249,17 +318,7 @@ def fixup_cuda(
         raise ValueError(f"NLE ({nle}) must be odd and >= 2K+1 ({2 * p.k_half + 1})")
     outs = torch.empty((b_count, N_OUT, s_count), dtype=torch.float32, device=corr_r.device)
     fin = torch.empty((N_CARRY, s_count), dtype=torch.float32, device=corr_r.device)
-    cp = _FixupParams(
-        kp_locked=p.kp_locked, ki_locked=p.ki_locked, kp_pullin=p.kp_pullin,
-        ki_pullin=p.ki_pullin, lam_err=p.lam_err, lam_q=p.lam_q,
-        # log1p(-lambda) in double, rounded once to float (as the reference).
-        log1m_lam_err=math.log1p(-p.lam_err), log1m_lam_q=math.log1p(-p.lam_q),
-        aiding_scale=p.aiding_scale, dll_gain=p.dll_gain, t_ms=p.t_ms,
-        max_err_var=p.max_err_var, min_quality=p.min_quality,
-        quality_drop=p.quality_drop, w_chip=p.w_chip,
-        lock_window_ms=p.lock_window_ms, watchdog_warmup_ms=p.watchdog_warmup_ms,
-        length=p.length, k_half=p.k_half, use_hrc=int(p.use_hrc),
-    )
+    cp = c_params(p)
     FIXUP_KERNEL.launch(
         ctypes.c_void_p(init.data_ptr()), ctypes.c_void_p(corr_r.data_ptr()),
         ctypes.c_void_p(corr_i.data_ptr()), ctypes.c_void_p(outs.data_ptr()),

@@ -4,8 +4,9 @@ Each kernel is a CUDA C++ source under ``gypsum_tpu_torch/csrc/`` with a
 plain C entry point. At first use it is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library under ``build/kernels/`` at the root of
 the checkout and loaded with ``ctypes``: no PyTorch headers are compiled, so
-a build takes seconds. The library name carries a hash of the source and the
-flags, so an edited source is never served a stale build. Nothing here runs
+a build takes seconds. The library name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is never
+served a stale build. Nothing here runs
 when a module is imported: the CPU tests import every module and this
 machine may have no ``nvcc``.
 
@@ -51,7 +52,12 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     """Where the build of ``csrc/<source>.cu`` lives."""
-    text = (CSRC_DIR / f"{source}.cu").read_bytes()
+    # The shared headers count too: an edited header must not be served a
+    # stale build of a source that includes it.
+    text = b"".join(
+        path.read_bytes()
+        for path in [CSRC_DIR / f"{source}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    )
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source}_{tag}.so"
 

@@ -8,16 +8,15 @@ and Doppler with a second-order Costas loop whose bandwidth depends on lock
 state, emit the prompt as a +/-1 pseudosymbol, and watch lock quality to
 detect lost lock.
 
-One call tracks every channel over a whole block (default 1000 ms) with the
-two-phase tracker of ``track/matmul.py``. The ``TrackerBank`` owns channel
+One call tracks every channel over a whole block (default 1000 ms): by
+default with the two-phase tracker of ``track/matmul.py``, by configuration
+with the per-ms scan tracker of ``track/scan.py`` or the whole-block kernel
+of ``ops/track_block.py`` (``make_track_block_fn`` says which). The
+``TrackerBank`` owns channel
 assignment (satellite <-> slot), turns block outputs into timestamped
 pseudosymbol streams, and mirrors the reference's drop/reacquire semantics.
 The loop carry stays on the device between dispatches; host edits
 (assign, release, rescue, coast) bring it back first.
-
-The per-ms scan tracker and the legacy whole-block kernel of the JAX package
-(``use_matmul_tracker=False``, ``use_pallas_block_tracker=True``) are not
-ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,7 +29,6 @@ import torch
 
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.device import resolve_device
-from gypsum_tpu_torch.core.unported import unported
 from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS, replica_table
 
 
@@ -86,6 +84,72 @@ def fresh_state(n_channels: int) -> TrackState:
     )
 
 
+def device_state(state: TrackState, device: torch.device) -> TrackState:
+    """``state`` as [S] tensors on ``device``. Accepts numpy or tensor leaves,
+    [S] or [S, 1]; host (numpy) leaves are copied, since the bank edits its
+    host state in place."""
+    return TrackState(*(
+        (torch.tensor(a) if isinstance(a, np.ndarray) else a).to(device).reshape(-1)
+        for a in state
+    ))
+
+
+def carry_rows(state: TrackState) -> list[torch.Tensor]:
+    """The loop carry of a device TrackState as the first eight float32 rows
+    of the kernels' [N_CARRY, S] arrays (ops/fixup.py: CP .. LOST)."""
+    f32 = torch.float32
+    return [
+        state.code_phase.to(f32), state.carrier_phase.to(f32), state.doppler.to(f32),
+        state.ema_err.to(f32), state.ema_err_sq.to(f32), state.ema_quality.to(f32),
+        state.step_count.to(f32), state.lost.to(f32),
+    ]
+
+
+def state_from_carry(fin: torch.Tensor, carrier_offset: torch.Tensor) -> TrackState:
+    """A TrackState from the first eight rows of a final carry [N_CARRY, S]."""
+    from gypsum_tpu_torch.ops import fixup as fx
+
+    return TrackState(
+        code_phase=fin[fx.CP],
+        carrier_phase=fin[fx.TH],
+        doppler=fin[fx.FD],
+        carrier_offset=carrier_offset,
+        ema_err=fin[fx.EERR],
+        ema_err_sq=fin[fx.EERR2],
+        ema_quality=fin[fx.EQ],
+        step_count=fin[fx.STEP].to(torch.int32),
+        lost=fin[fx.LOST] > 0.5,
+    )
+
+
+def block_fn_from_packed(packed):
+    """``f(state, samples_block, replicas_wide) -> (state', TrackBlockOutputs)``
+    around ``packed``, which returns the outputs as one [B, N_OUT, S] float32
+    tensor (rows in ``ops/fixup.py``'s ``O_*`` order) instead. ``f.packed`` is
+    what the bank carries to the host in one copy."""
+    from gypsum_tpu_torch.ops import fixup as fx
+
+    def track_block(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
+        new_state, outs = packed(state, samples_block, replicas_wide)
+        outputs = TrackBlockOutputs(
+            prompt_i=outs[:, fx.O_PI],
+            prompt_q=outs[:, fx.O_PQ],
+            code_phase=outs[:, fx.O_CP],
+            code_phase_measured=outs[:, fx.O_CPM],
+            doppler=outs[:, fx.O_FD],
+            carrier_phase=outs[:, fx.O_TH],
+            pll_error=outs[:, fx.O_PLL],
+            dll_error=outs[:, fx.O_DLL],
+            locked=outs[:, fx.O_LOCKED] > 0.5,
+            quality=outs[:, fx.O_QUAL],
+            lost=outs[:, fx.O_LOST] > 0.5,
+        )
+        return new_state, outputs
+
+    track_block.packed = packed
+    return track_block
+
+
 def make_track_block_fn(
     config: TrackingConfig,
     samples_per_prn: int,
@@ -98,23 +162,83 @@ def make_track_block_fn(
     """Build the block-tracking function on ``device``.
 
     Returns ``f(state, samples_block, replicas_wide) -> (state', outputs)``
-    (see track/matmul.py:make_matmul_track_block_fn). With
-    ``stream_of_channel`` ([S] int), the farm variant: samples_block is
-    [B, N, L(, 2)] and channel s correlates against stream
-    ``stream_of_channel[s]``.
+    (see track/matmul.py:make_matmul_track_block_fn); ``f.packed`` returns the
+    outputs as one [B, N_OUT, S] tensor. With ``stream_of_channel`` ([S] int),
+    the farm variant: samples_block is [B, N, L(, 2)] and channel s
+    correlates against stream ``stream_of_channel[s]``.
+
+    Which tracker, as in the JAX package:
+
+    - ``use_matmul_tracker`` None means "the two-phase tracker unless
+      ``use_pallas_block_tracker`` is True";
+    - otherwise ``use_pallas_block_tracker`` True takes the whole-block
+      kernel (ops/track_block.py), False the per-ms scan (track/scan.py),
+      and None the kernel on a CUDA device and the scan on the CPU;
+    - a farm always takes the scan (the block kernel assumes one stream).
+
+    The JAX package also falls back to the scan when the block kernel's lag
+    matrix would not fit the TPU's VMEM; the CUDA kernel holds one
+    L + 2 K_eff window per channel and no lag matrix, so there is no such
+    fallback here.
     """
     cfg = config
-    if cfg.use_pallas_block_tracker is True:
-        raise unported("the legacy whole-block tracker (use_pallas_block_tracker)")
-    if cfg.use_matmul_tracker is False:
-        raise unported("the per-ms scan tracker (use_matmul_tracker=False)")
-    from gypsum_tpu_torch.track.matmul import make_matmul_track_block_fn
+    dev = resolve_device(device)
+    use_matmul = cfg.use_matmul_tracker
+    if use_matmul is None:
+        use_matmul = cfg.use_pallas_block_tracker is not True
+    if use_matmul:
+        from gypsum_tpu_torch.track.matmul import make_matmul_track_block_fn
 
-    return make_matmul_track_block_fn(
+        return make_matmul_track_block_fn(
+            cfg, samples_per_prn, sample_rate, n_channels,
+            stream_of_channel=stream_of_channel, input_offset=input_offset, device=dev,
+        )
+
+    if stream_of_channel is not None:
+        use_block_kernel = False
+    else:
+        use_block_kernel = cfg.use_pallas_block_tracker
+    if use_block_kernel is None:
+        use_block_kernel = dev.type == "cuda"
+    if use_block_kernel:
+        return _make_block_kernel_wrapper(cfg, samples_per_prn, sample_rate, input_offset, dev)
+
+    from gypsum_tpu_torch.track.scan import make_scan_track_block_fn
+
+    return make_scan_track_block_fn(
         cfg, samples_per_prn, sample_rate, n_channels,
-        stream_of_channel=stream_of_channel, input_offset=input_offset,
-        device=resolve_device(device),
+        stream_of_channel=stream_of_channel, input_offset=input_offset, device=dev,
     )
+
+
+def _make_block_kernel_wrapper(cfg, length, fs, input_offset, device):
+    """Adapt the whole-block kernel (ops/track_block.py) to the
+    TrackState/TrackBlockOutputs contract."""
+    from gypsum_tpu_torch.core.planes import dequantize_planes, to_planes
+    from gypsum_tpu_torch.ops import track_block as tb
+
+    if cfg.code_phase_measurement != "triangle":
+        raise ValueError(
+            "the legacy block tracker only implements the 'triangle' "
+            "code-phase measurement; use the matmul or scan tracker for "
+            f"{cfg.code_phase_measurement!r}"
+        )
+    params = tb.TrackBlockParams.from_config(cfg, length, fs)
+
+    def track_block_packed(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
+        state = device_state(state, device)
+        if samples_block.is_complex():
+            planes = to_planes(samples_block)
+        else:
+            planes = dequantize_planes(samples_block, input_offset)
+        rows = torch.stack([*carry_rows(state), torch.zeros_like(state.code_phase, dtype=torch.float32)])
+        fin, outs = tb.track_block(rows, planes, replicas_wide, params)
+        # The legacy block kernel predates FDMA carrier offsets and ignores
+        # them (TrackerBank.assign rejects nonzero offsets when this path is
+        # forced); the offset column rides through unchanged.
+        return state_from_carry(fin, state.carrier_offset), outs
+
+    return block_fn_from_packed(track_block_packed)
 
 
 class _Dispatched(NamedTuple):
@@ -222,6 +346,11 @@ class TrackerBank:
 
         ``carrier_offset_hz``: static sub-band offset for FDMA signals;
         ``doppler_hz`` stays the Doppler RELATIVE to that offset."""
+        if carrier_offset_hz and self.config.use_pallas_block_tracker is True:
+            raise ValueError(
+                "the legacy block tracker does not support FDMA "
+                "carrier offsets; use the matmul or scan tracker"
+            )
         self.sync_host_state()
         try:
             slot = self.slot_prn.index(None)

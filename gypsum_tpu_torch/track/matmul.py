@@ -35,8 +35,8 @@ import torch
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
 from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex
-from gypsum_tpu_torch.core.unported import unported
 from gypsum_tpu_torch.ops import fixup as fx
+from gypsum_tpu_torch.ops.correlate import ascending_lag_rows, lag_window
 
 
 def lag_window_size(config: TrackingConfig, samples_per_prn: int) -> int:
@@ -87,7 +87,13 @@ def make_matmul_track_block_fn(
     outputs are a TrackBlockOutputs of [B, S] tensors. ``f.packed`` returns
     the outputs as one [B, N_OUT, S] float32 tensor instead.
     """
-    from gypsum_tpu_torch.track.loop import TrackBlockOutputs, TrackState
+    from gypsum_tpu_torch.track.loop import (
+        TrackState,
+        block_fn_from_packed,
+        carry_rows,
+        device_state,
+        state_from_carry,
+    )
 
     cfg = config
     length = int(samples_per_prn)
@@ -102,8 +108,11 @@ def make_matmul_track_block_fn(
     backend = cfg.fixup_backend
     if backend not in (None, "pallas", "scan"):
         raise ValueError(f"unknown fixup_backend {backend!r} (pallas | scan | None)")
-    if backend == "scan" and device.type == "cuda":
-        raise unported("the scan fixup on the card (fixup_backend='scan')")
+    # fixup_backend="scan" is a named configuration, not a fallback: only a
+    # caller that sets it explicitly gets the plain loop-filter chain on the
+    # card's tensors (the JAX package allows its scan fixup on any backend).
+    # None and "pallas" launch the fixup kernel on a CUDA device, or raise.
+    run_fixup = fx.fixup_reference if backend == "scan" else fx.fixup
 
     # bf16 operands keep phase 1 on the card's tensor cores; on the CPU they
     # are rounded to bf16 and multiplied in float32, which is the same
@@ -129,14 +138,8 @@ def make_matmul_track_block_fn(
         centered on the predicted mid-block code phase; also cpi0 [S]."""
         predicted_mid = -aiding_scale * state.doppler * (cfg.block_size_ms / 2.0)
         cpi0 = torch.remainder(torch.floor(state.code_phase + predicted_mid).to(torch.int64), length)
-        base0 = torch.remainder(length - cpi0 - k_eff, length)
-        w2 = torch.cat([replicas_wide[:, : 2 * length], replicas_wide[:, : 2 * k_eff]], dim=1)
-        span = torch.arange(length + 2 * k_eff, device=device)
-        win = torch.gather(w2, 1, base0[:, None] + span[None, :])  # [S, L + 2K_eff]
-        # Row k of the unfold starts at base0 + k: the replica rolled by
-        # (cp0 + K_eff - k), a descending lag order; flip to ascending.
-        rows = win.unfold(1, length, 1).flip(1)  # [S, NLE, L]
-        return rows, cpi0
+        rows = ascending_lag_rows(lag_window(replicas_wide, cpi0, length, k_eff), length)
+        return rows, cpi0  # [S, NLE, L]
 
     def correlate_block(rows: torch.Tensor, state: TrackState, chunks: torch.Tensor):
         """Phase 1: all-lag correlations for every millisecond at once.
@@ -172,11 +175,7 @@ def make_matmul_track_block_fn(
         """The state as [S] device tensors, the fixup's initial carry
         [N_CARRY, S] and the block's correlations corr_r, corr_i
         [B, S, NLE]."""
-        # Host (numpy) leaves are copied: the bank edits its host state in place.
-        state = TrackState(*(
-            (torch.tensor(a) if isinstance(a, np.ndarray) else a).to(device).reshape(-1)
-            for a in state
-        ))
+        state = device_state(state, device)
         if samples_block.is_complex():
             chunks = samples_block.to(torch.complex64)
         else:
@@ -187,9 +186,7 @@ def make_matmul_track_block_fn(
         # The phase-1 wipeoff reference is the block-start state.
         f32 = torch.float32
         init = torch.stack([
-            state.code_phase.to(f32), state.carrier_phase.to(f32), state.doppler.to(f32),
-            state.ema_err.to(f32), state.ema_err_sq.to(f32), state.ema_quality.to(f32),
-            state.step_count.to(f32), state.lost.to(f32), cpi0.to(f32),
+            *carry_rows(state), cpi0.to(f32),
             state.carrier_phase.to(f32), state.doppler.to(f32), state.carrier_offset.to(f32),
         ])  # [N_CARRY, S]
         return state, init, corr_r, corr_i
@@ -198,41 +195,12 @@ def make_matmul_track_block_fn(
         """(state', outs [B, N_OUT, S] float32): the fixup's outputs as it
         wrote them, rows in ``fx.O_*`` order."""
         state, init, corr_r, corr_i = phase1(state, samples_block, replicas_wide)
-        fin, outs = fx.fixup(init, corr_r, corr_i, params)
-        new_state = TrackState(
-            code_phase=fin[fx.CP],
-            carrier_phase=fin[fx.TH],
-            doppler=fin[fx.FD],
-            carrier_offset=state.carrier_offset,
-            ema_err=fin[fx.EERR],
-            ema_err_sq=fin[fx.EERR2],
-            ema_quality=fin[fx.EQ],
-            step_count=fin[fx.STEP].to(torch.int32),
-            lost=fin[fx.LOST] > 0.5,
-        )
-        return new_state, outs
+        fin, outs = run_fixup(init, corr_r, corr_i, params)
+        return state_from_carry(fin, state.carrier_offset), outs
 
-    def track_block(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
-        new_state, outs = track_block_packed(state, samples_block, replicas_wide)
-        outputs = TrackBlockOutputs(
-            prompt_i=outs[:, fx.O_PI],
-            prompt_q=outs[:, fx.O_PQ],
-            code_phase=outs[:, fx.O_CP],
-            code_phase_measured=outs[:, fx.O_CPM],
-            doppler=outs[:, fx.O_FD],
-            carrier_phase=outs[:, fx.O_TH],
-            pll_error=outs[:, fx.O_PLL],
-            dll_error=outs[:, fx.O_DLL],
-            locked=outs[:, fx.O_LOCKED] > 0.5,
-            quality=outs[:, fx.O_QUAL],
-            lost=outs[:, fx.O_LOST] > 0.5,
-        )
-        return new_state, outputs
-
-    # The packed form is what the bank carries to the host in one copy;
-    # phase 1 and the fixup's constants on their own hold the fixup kernel
+    track_block = block_fn_from_packed(track_block_packed)
+    # Phase 1 and the fixup's constants on their own hold the fixup kernel
     # against its plain version on real correlations.
-    track_block.packed = track_block_packed
     track_block.phase1 = phase1
     track_block.fixup_params = params
     return track_block
