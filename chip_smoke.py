@@ -6,16 +6,33 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the five hand-written kernels from ``gypsum_tpu_torch/csrc`` with
-   ``nvcc`` (one process each, in parallel);
+   ``nvcc`` (one process each, in parallel), and a kernel that does nothing
+   (``csrc/empty.cu``, the yardstick of a launch);
 3. each kernel against its plain PyTorch version, timed beside its bound:
    K1 (loop-filter fixup) on the correlations of a real phase-1 pass over a
    synthesized 1000 ms block (12 channels, NLE 35), triangle and HRC;
    K2 (acquisition peak reduce) on the real [928, 2046] coarse grid, odd
-   sizes and planted ties; K5 (FIR decimator) on one 1000 ms block at
-   8.184 Msps (factor 4, 49 taps) and 16.368 Msps (factor 8, 97 taps), odd
-   lengths and N == T, beside ``F.conv1d``; K4 (per-ms wipeoff + lag
-   correlate) on a chunk of that block with the bank's (theta, f, base);
-   K3 (whole-block tracker) on that block;
+   sizes, rows shorter than one 16-byte load, a row count the blocks do not
+   divide, views 4 and 12 bytes into their storage, planted ties and rows
+   of -inf; K5 (FIR decimator) on one 1000 ms block at 8.184 Msps (factor
+   4, 49 taps) and 16.368 Msps (factor 8, 97 taps), odd lengths and N == T,
+   beside ``F.conv1d``; K4 (per-ms wipeoff + lag correlate) on chunks of
+   that block with the bank's (theta, f, base), on 1 to 64 channels, three
+   lengths, 1 to 33 lags and 1 to 8 blocks per channel, each run twice and
+   the two runs held equal to the bit; K3 (whole-block tracker) on that
+   block.
+
+   Every kernel, its plain version and its library call are timed two ways
+   (``two_way``), in turns within this one run. The **issue time** is what
+   a caller in a Python loop pays per call: CUDA events around a loop of
+   calls (``issue_ms``); for a kernel shorter than its launch path that is
+   host time. The **device time** is what the call costs the card alone,
+   free of the host: the same calls captured into one CUDA graph and the
+   graph replayed between two events (``device_ms``). In the ``kernels``
+   line ``ms``, ``plain_ms`` and ``library_ms`` are device times;
+   ``issue_ms``, ``plain_issue_ms`` and ``library_issue_ms`` are issue
+   times. Where the two agree the device bounds the call; where the issue
+   time is the larger the host does;
 4. end to end at 2.046 Msps: the 4-satellite, 23 s cold-start scene replayed
    to a fix through ``python -m gypsum_tpu_torch replay --until-fix`` and
    through ``Receiver(device="cuda")`` (default config; K2 peak reduce;
@@ -29,15 +46,26 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
 6. one more replay under torch.profiler: the device's busy share and the
    kernels that take it;
 7. a ``{"kernels": [...]}`` line with each kernel's launches, error and
-   times beside its bound;
+   both times beside its bound;
 8. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 It exits with an error at once when no CUDA device is present.
+
+``python3 chip_smoke.py --kernels-only`` stops after step 3, and
+``--kernels-only=K2,K4`` checks and times only the kernels it names: a
+short run for work on a kernel (no replay, so no launch counts and no result
+line). The checks call the wrappers with their oldest signatures (K4's
+optional ``n_split`` is probed), so a copy of this script and of
+``csrc/empty.cu`` in a checkout of an earlier commit times that commit's
+kernels the same way, for a comparison of two commits within one run on one
+card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import inspect
 import json
 import os
 import re
@@ -64,8 +92,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, n_iter: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` (CUDA events around ``n_iter`` calls)."""
+def issue_ms(fn, n_iter: int, warmup: int = 2) -> float:
+    """What a caller in a Python loop pays per call of ``fn``: CUDA events
+    around ``n_iter`` calls. It is the device's time only while the device
+    is slower than the host can issue; for a short kernel it is the cost of
+    the launch path on the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -76,6 +107,74 @@ def cuda_ms(fn, n_iter: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n_iter
+
+
+def device_ms(fn, n_iter: int, warmup: int = 2, n_replays: int = 3) -> float:
+    """What a call of ``fn`` costs the card alone, free of the host:
+    ``n_iter`` calls captured into one ``torch.cuda.CUDAGraph`` (a wrapper's
+    launch reads PyTorch's current stream at each call, so the capture sees
+    it; its ``torch.empty`` comes from the graph's own pool) and the graph
+    replayed between two events, the mean of ``n_replays`` replays over the
+    count. The card runs the captured kernels back to back, so the time holds
+    each kernel's duration and the card's own hand-over from one kernel to
+    the next, and nothing of Python, the allocator or the launch call.
+
+    Not ``torch.profiler``: on the H100 host this was written on (torch
+    2.11.0+cu128) its sessions lost records (once all of 200 launches, once
+    1 of 200, and after one session of 128 000 launches 2 to 16 of 20 in
+    every later one), so a sum of recorded durations is not safe. Where it
+    lost nothing it read 0.1 to 0.4 us per kernel under the graph's time."""
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):  # capture needs every lazy set-up done
+        for _ in range(max(warmup, 1)):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n_iter):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(n_replays):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / n_replays / n_iter
+
+
+def two_way(fns: dict) -> dict:
+    """Time every ``name: (fn, n_iter, warmup)`` both ways, in turns on this
+    card: once in the given order and once in reverse (plain, kernel, kernel,
+    plain). Returns ``name: (device ms, issue ms)``, each the mean of its two
+    turns; both turns are logged."""
+    turns = {name: [] for name in fns}
+    for order in (list(fns), list(reversed(fns))):
+        for name in order:
+            fn, n_iter, warmup = fns[name]
+            issue = issue_ms(fn, n_iter, warmup)
+            turns[name].append((device_ms(fn, n_iter, warmup), issue))
+    out = {}
+    for name, t in turns.items():
+        out[name] = (sum(d for d, _ in t) / len(t), sum(i for _, i in t) / len(t))
+        log(f"  two-way {name}: device {' / '.join(f'{d:.5f}' for d, _ in t)} ms, "
+            f"issue {' / '.join(f'{i:.5f}' for _, i in t)} ms")
+    return out
+
+
+def timing_keys(t: dict) -> dict:
+    """The timing keys of a ``kernels`` entry from a ``two_way`` result with
+    the names kernel, plain and (optionally) library: ``ms``, ``plain_ms``
+    and ``library_ms`` are device times, the ``*issue_ms`` keys issue times."""
+    lib = t.get("library", (None, None))
+    return {
+        "ms": t["kernel"][0], "issue_ms": t["kernel"][1],
+        "plain_ms": t["plain"][0], "plain_issue_ms": t["plain"][1],
+        "library_ms": lib[0], "library_issue_ms": lib[1],
+    }
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -139,7 +238,6 @@ def check_fixup(dev, sats, samples) -> dict:
 
     b_ms, n_ch = B_MS, N_CH
     worst = 0.0
-    times = {}
     for meas in ("triangle", "hrc"):
         bank, replicas = checks_bank(sats, dev, TrackingConfig(code_phase_measurement=meas))
         _, init, corr_r, corr_i = bank._fn.phase1(bank.state, samples, replicas)
@@ -168,13 +266,15 @@ def check_fixup(dev, sats, samples) -> dict:
                 raise AssertionError(f"K1 {meas} {name}: per-row max error {rows_err.tolist()}")
             worst = max(worst, float(diff.max()))
         locked = int(outs_k[-1, fx.O_LOCKED].sum())
-        times[meas] = (
-            cuda_ms(lambda: fx.fixup_cuda(init, corr_r, corr_i, params), 20),
-            cuda_ms(lambda: fx.fixup_reference(init, corr_r, corr_i, params), 1, warmup=1),
-        )
         log(f"K1 {meas}: kernel == plain (locked/lost/step exact, max |err| {worst:.3g}); "
-            f"{locked}/{n_ch} channels locked at block end; "
-            f"kernel {times[meas][0]:.4f} ms, plain {times[meas][1]:.2f} ms")
+            f"{locked}/{n_ch} channels locked at block end")
+        if meas == "triangle":
+            # The plain version (1000 Python steps, some 128 000 launches)
+            # has just run: one call, no warm-up of its own.
+            times = two_way({
+                "kernel": (lambda: fx.fixup_cuda(init, corr_r, corr_i, params), 20, 2),
+                "plain": (lambda: fx.fixup_reference(init, corr_r, corr_i, params), 1, 0),
+            })
     b_count, s_count, nle = corr_r.shape
     n_lags = 2 * params.k_half + 1
     # Bytes the function needs: per ms and channel only the 2K+1 lags around
@@ -194,11 +294,9 @@ def check_fixup(dev, sats, samples) -> dict:
         "source": "gypsum_tpu_torch/csrc/fixup.cu",
         "replaces": "gypsum_tpu/ops/pallas_fixup.py:58",
         "max_abs_err": worst,
-        "ms": times["triangle"][0],
-        "plain_ms": times["triangle"][1],
+        **timing_keys(times),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,
     }
 
 
@@ -221,14 +319,29 @@ def check_peak_reduce(dev) -> dict:
     if main.shape != (928, 2046):
         raise AssertionError(f"unexpected grid shape {tuple(main.shape)}")
     g = torch.Generator(device=dev).manual_seed(3)
-    cases = [main]
-    for rows, n in ((1, 1), (7, 3001), (33, 129), (5, 2047)):
-        t = torch.rand((rows, n), device=dev, generator=g)
-        t[:, n // 3] = 2.0  # planted ties: the lowest index must win
+
+    def planted(rows, n, offset=0):
+        """Random rows with two planted maxima each (the lowest index must
+        win), as a contiguous view ``offset`` floats into its storage."""
+        t = torch.rand(rows * n + offset, device=dev, generator=g)[offset:].view(rows, n)
+        t[:, n // 3] = 2.0
         t[:, n - 1] = 2.0
-        cases.append(t)
-    tie = torch.zeros((3, 1000), device=dev)  # every element ties
-    cases.append(tie)
+        return t
+
+    # The main grid; odd sizes; a row count that is not a multiple of the
+    # rows per block; rows shorter than one 16-byte load; views 4 and 12 bytes
+    # into their storage, so that no row starts where the base suggests.
+    cases = [main]
+    cases += [planted(rows, n) for rows, n in (
+        (1, 1), (7, 3001), (33, 129), (5, 2047), (929, 2046), (9, 1), (9, 2), (9, 3), (9, 2047))]
+    cases += [planted(928, 2046, offset=1), planted(9, 2047, offset=1), planted(5, 3, offset=3)]
+    if cases[-3].data_ptr() % 16 != 4 or not cases[-3].is_contiguous():
+        raise AssertionError("the offset view is not 4 bytes off a 16-byte boundary")
+    cases.append(torch.zeros((3, 1000), device=dev))  # every element ties
+    inf_rows = planted(6, 2046)
+    inf_rows[1] = float("-inf")  # a row of -inf: index 0
+    inf_rows[4, 5:] = float("-inf")
+    cases.append(inf_rows)
     worst = 0.0
     for t in cases:
         mk, ak, sk = peak_reduce_cuda(t)
@@ -239,26 +352,33 @@ def check_peak_reduce(dev) -> dict:
         # Sum: rtol 1e-5 (float32 sums of up to 3001 terms in another order).
         if not torch.allclose(sk, sp, rtol=1e-5, atol=0.0):
             raise AssertionError(f"K2 sum differs at shape {tuple(t.shape)}")
-        worst = max(worst, float((sk - sp).abs().max()))
-    ms = cuda_ms(lambda: peak_reduce_cuda(main), 200)
-    plain_ms = cuda_ms(lambda: peak_reduce_reference(main), 200)
-    library_ms = cuda_ms(lambda: (torch.max(main, dim=1), main.sum(dim=1)), 200)
+        worst = max(worst, float((sk - sp)[torch.isfinite(sp)].abs().max()))
     rows, n = main.shape
     bound_ms, bound_by = bound(4 * rows * n + 12 * rows, 2 * rows * n)
     log(f"K2 peak reduce: kernel == plain on {len(cases)} cases (argmax/max exact, "
-        f"sum max |err| {worst:.3g}); [928, 2046]: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.max+sum {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+        f"sum max |err| {worst:.3g}); [928, 2046], bound {bound_ms:.5f} ms ({bound_by}); the "
+        f"7.6 MB input stays warm in the 50 MB L2 between calls, as the real caller finds it "
+        f"(the sweep has just written it)")
+    # The library yardstick: torch.max(dim=1) gives max and argmax in one
+    # call, sum the third result; its device time holds both kernels. The
+    # kernel that does nothing runs on K2's grid.
+    times = two_way({
+        "plain": (lambda: peak_reduce_reference(main), 200, 2),
+        "kernel": (lambda: peak_reduce_cuda(main), 200, 2),
+        "library": (lambda: (torch.max(main, dim=1), main.sum(dim=1)), 200, 2),
+        "empty": (lambda: EMPTY_KERNEL.launch(116, 256), 200, 2),
+    })
     return {
         "name": "K2 peak_reduce",
         "route": "cuda",
         "source": "gypsum_tpu_torch/csrc/peak_reduce.cu",
         "replaces": "gypsum_tpu/ops/pallas_kernels.py:194",
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **timing_keys(times),
+        "empty_ms": times["empty"][0],
+        "empty_issue_ms": times["empty"][1],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": library_ms,
     }
 
 
@@ -299,18 +419,15 @@ def check_fir_decimate(dev) -> dict:
             w = taps[None, None, :]
             t_len, n_out = len(taps), y_k.shape[0]
             bound_ms, bound_by = bound(4 * (2 * n + 2 * n_out + t_len), 2 * t_len * 2 * n_out)
-            timed[factor] = dict(
-                ms=cuda_ms(lambda: fir_decimate_cuda(x, taps, factor), 20),
-                plain_ms=cuda_ms(lambda: fir_decimate_reference(x, taps, factor), 20),
-                # The library call: one float32 strided convolution (TF32 is
-                # off, core/device.py) on planes already laid out [2, 1, N].
-                library_ms=cuda_ms(lambda: F.conv1d(v, w, stride=factor), 20),
-                bound_ms=bound_ms, bound_by=bound_by,
-            )
-            t = timed[factor]
-            log(f"K5 fir_decimate [{n}, 2] / {factor}, {t_len} taps: kernel {t['ms']:.4f} ms, "
-                f"plain {t['plain_ms']:.4f} ms, F.conv1d {t['library_ms']:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by})")
+            log(f"K5 fir_decimate [{n}, 2] / {factor}, {t_len} taps: bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            # The library call: one float32 strided convolution (TF32 is
+            # off, core/device.py) on planes already laid out [2, 1, N].
+            timed[factor] = dict(**timing_keys(two_way({
+                "plain": (lambda: fir_decimate_reference(x, taps, factor), 20, 2),
+                "kernel": (lambda: fir_decimate_cuda(x, taps, factor), 20, 2),
+                "library": (lambda: F.conv1d(v, w, stride=factor), 20, 2),
+            })), bound_ms=bound_ms, bound_by=bound_by)
     log(f"K5 fir_decimate: kernel == plain on {len(cases)} cases (rtol 1e-4, atol 1e-5; "
         f"max |err| {worst:.3g})")
     return {
@@ -321,6 +438,30 @@ def check_fir_decimate(dev) -> dict:
         "max_abs_err": worst,
         **timed[4],
     }
+
+
+def hold_wipeoff_lag(args, what: str, **kw) -> tuple[float, float]:
+    """K4 against its plain version on ``args``, and against itself: two
+    launches on the same inputs must give the same bits (the blocks of a
+    channel are added in a fixed order). Returns (max |err|, scale)."""
+    from gypsum_tpu_torch.ops.wipeoff_lag import wipeoff_lag_cuda, wipeoff_lag_reference
+
+    out_k = wipeoff_lag_cuda(*args, **kw)
+    again = wipeoff_lag_cuda(*args, **kw)
+    out_p = wipeoff_lag_reference(*args)
+    torch.cuda.synchronize()
+    if out_k.shape != out_p.shape or not bool(torch.isfinite(out_k).all()):
+        raise AssertionError(f"K4 at {what}: shape {tuple(out_k.shape)} or non-finite values")
+    if not torch.equal(out_k, again):
+        raise AssertionError(f"K4 at {what}: two runs on the same inputs differ")
+    scale = float(out_p.abs().max())
+    err = float((out_k - out_p).abs().max())
+    # Tolerance: 1e-4 of the correlation scale. Both sides run the same
+    # float32 phase arithmetic; the sums run in another order and the card's
+    # sincosf against PyTorch's cos and sin may differ in the last bit.
+    if err > 1e-4 * scale:
+        raise AssertionError(f"K4 differs at {what}: max |err| {err:.3g} at scale {scale:.3g}")
+    return err, scale
 
 
 def check_wipeoff_lag(dev, sats, samples) -> dict:
@@ -342,41 +483,64 @@ def check_wipeoff_lag(dev, sats, samples) -> dict:
             np.stack([theta, st.doppler, base.astype(np.float32)], axis=-1).astype(np.float32)
         ).to(dev)
         args = (chunk_iq, replicas, params, L, n_lags, 1.0 / FS)
-        out_k = wipeoff_lag_cuda(*args)
-        out_p = wipeoff_lag_reference(*args)
-        torch.cuda.synchronize()
-        if out_k.shape != (N_CH, 2, n_lags):
-            raise AssertionError(f"K4 output shape {tuple(out_k.shape)}")
-        scale = float(out_p.abs().max())
-        err = float((out_k - out_p).abs().max())
-        # Tolerance: 1e-4 of the correlation scale. Both sides run the same
-        # float32 phase arithmetic; the 2046-term sums run in another order
-        # and the card's cosf/sinf against PyTorch's may differ in the last bit.
-        if err > 1e-4 * scale:
-            raise AssertionError(f"K4 differs at ms {ms}: max |err| {err:.3g} at scale {scale:.3g}")
+        err, scale = hold_wipeoff_lag(args, f"ms {ms}")
         worst = max(worst, err)
-    ms = cuda_ms(lambda: wipeoff_lag_cuda(*args), 200)
-    plain_ms = cuda_ms(lambda: wipeoff_lag_reference(*args), 50)
+    # Other shapes on seeded random inputs: 1, 12 and 64 channels (8, 8 and 2
+    # blocks per channel on 132 SMs), lengths that the blocks do not divide,
+    # 1 to 33 lags, the window base at 0 and at its clamp, and one set of
+    # replicas that are not +/-1 (the fused multiply-add then rounds once).
+    # These take only what every version of the wrapper takes.
+    g = torch.Generator(device=dev).manual_seed(4)
+    n_shapes = 0
+    for s_count in (1, 12, 64):
+        for length in (2046, 2047, 4092):
+            for lags in (1, 9, 33):
+                w_len = 2 * length + lags - 1
+                wide = torch.randn((s_count, w_len), device=dev, generator=g)
+                if (s_count, lags) != (12, 9):
+                    wide = torch.sign(wide)
+                base = torch.randint(0, length, (s_count,), device=dev, generator=g).float()
+                base[0], base[-1] = 0.0, float(w_len - length - (lags - 1))
+                shape_params = torch.stack([
+                    6.28 * torch.rand(s_count, device=dev, generator=g),
+                    10e3 * torch.rand(s_count, device=dev, generator=g) - 5e3, base], dim=-1)
+                shape_args = (torch.randn((2, length), device=dev, generator=g), wide,
+                              shape_params, length, lags, 1.0 / FS)
+                hold_wipeoff_lag(shape_args, f"S {s_count}, L {length}, {lags} lags")
+                n_shapes += 1
+    if "n_split" in inspect.signature(wipeoff_lag_cuda).parameters:
+        # Every number of blocks per channel, whatever the card would pick.
+        for n_split in (1, 2, 4, 8):
+            hold_wipeoff_lag(args, f"{n_split} blocks per channel", n_split=n_split)
+            n_shapes += 1
+    times = two_way({
+        "plain": (lambda: wipeoff_lag_reference(*args), 50, 2),
+        "kernel": (lambda: wipeoff_lag_cuda(*args), 200, 2),
+        # A kernel that does nothing, on K4's grid of 96 blocks of 512
+        # threads: what a launch alone costs the card and the host.
+        "empty": (lambda: EMPTY_KERNEL.launch(96, 512), 200, 2),
+    })
     w_len = replicas.shape[1]
     # Bytes: the chunk, each channel's L + 2K window, the parameters, the
     # outputs. Operations: per channel and sample 12 for the wipeoff and 4
     # per lag.
     n_bytes = 4 * (2 * L + N_CH * (L + 2 * k_half) + 3 * N_CH + 2 * N_CH * n_lags)
     bound_ms, bound_by = bound(n_bytes, N_CH * L * (12 + 4 * n_lags))
-    log(f"K4 wipeoff_lag [{N_CH}, {w_len}], {n_lags} lags: kernel == plain (max |err| "
-        f"{worst:.3g} at scale {scale:.3g}, atol 1e-4 of scale); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    log(f"K4 wipeoff_lag [{N_CH}, {w_len}], {n_lags} lags: kernel == plain on 3 chunks of the "
+        f"block (max |err| {worst:.3g} at scale {scale:.3g}) and on {n_shapes} other shapes (bar "
+        f"1e-4 of scale), two runs on the same inputs equal to the bit; bound {bound_ms:.6f} ms "
+        f"({bound_by})")
     return {
         "name": "K4 wipeoff_lag",
         "route": "cuda",
         "source": "gypsum_tpu_torch/csrc/wipeoff_lag.cu",
         "replaces": "gypsum_tpu/ops/pallas_kernels.py:281",
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **timing_keys(times),
+        "empty_ms": times["empty"][0],
+        "empty_issue_ms": times["empty"][1],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,
     }
 
 
@@ -395,11 +559,8 @@ def check_track_block(dev, sats, samples) -> dict:
     planes = to_planes(samples).contiguous()
     nle = 2 * params.k_eff + 1
     fin_k, outs_k = tb.track_block_cuda(rows, planes, replicas, params)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     fin_p, outs_p = tb.track_block_reference(rows, planes, replicas, params)
     torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
     if outs_k.shape != (B_MS, fx.N_OUT, N_CH) or fin_k.shape != (tb.N_CARRY, N_CH):
         raise AssertionError(f"K3 shapes {tuple(outs_k.shape)}, {tuple(fin_k.shape)}")
     for name, t in (("kernel outs", outs_k), ("kernel carry", fin_k), ("plain outs", outs_p)):
@@ -426,7 +587,12 @@ def check_track_block(dev, sats, samples) -> dict:
         worst = max(worst, float(rows_err.max()))
         worst_rel = max(worst_rel, float((rows_err / scale).max()))
     locked = int(outs_k[-1, fx.O_LOCKED].sum())
-    ms = cuda_ms(lambda: tb.track_block_cuda(rows, planes, replicas, params), 5)
+    # The plain version (1000 Python steps) has just run: one call, no
+    # warm-up of its own.
+    times = two_way({
+        "kernel": (lambda: tb.track_block_cuda(rows, planes, replicas, params), 5, 2),
+        "plain": (lambda: tb.track_block_reference(rows, planes, replicas, params), 1, 0),
+    })
     # Bytes: the block's samples and the S windows once, the outputs, the
     # carry in and out. Operations: per ms and channel, 2 NLE dot products of
     # L multiply-adds and ~12 L for the wipeoff.
@@ -436,19 +602,17 @@ def check_track_block(dev, sats, samples) -> dict:
     bound_ms, bound_by = bound(n_bytes, n_ops)
     log(f"K3 track_block [{B_MS}, {L}, 2] x {N_CH} channels, NLE {nle}: kernel == plain "
         f"(locked/lost/step exact; max |err| {worst:.3g}, {worst_rel:.3g} of row scale; bars 5e-3 "
-        f"outputs, 2e-3 carry); {locked}/{N_CH} channels locked at block end; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_ops / 1e9:.2f} GFLOP)")
+        f"outputs, 2e-3 carry); {locked}/{N_CH} channels locked at block end; "
+        f"bound {bound_ms:.4f} ms ({bound_by}, {n_ops / 1e9:.2f} GFLOP)")
     return {
         "name": "K3 track_block",
         "route": "cuda",
         "source": "gypsum_tpu_torch/csrc/track_block.cu",
         "replaces": "gypsum_tpu/ops/pallas_track.py:54",
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **timing_keys(times),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,
     }
 
 
@@ -584,6 +748,7 @@ def run_receiver(iq: np.ndarray, rx: np.ndarray, dev, peak_kernel: bool = False,
 
 
 KERNELS = {}  # name -> CudaKernel, filled by main()
+EMPTY_KERNEL = None  # the kernel that does nothing (csrc/empty.cu), set by main()
 
 
 def reset_launches() -> None:
@@ -629,16 +794,17 @@ def block_timings(recv, iq: np.ndarray) -> tuple[float, float]:
     replicas = bank._device_replicas(prn_idx)
     bank.sync_host_state()
     state = bank.state
-    track_ms = cuda_ms(lambda: bank._fn.packed(state, block, replicas), 5)
+    track_ms = issue_ms(lambda: bank._fn.packed(state, block, replicas), 5)
     x10 = torch.from_numpy(np.ascontiguousarray(iq[: 10 * L].reshape(10, L))).to(bank.device)
-    acq_ms = cuda_ms(lambda: recv.acquisition(x10), 5)
+    acq_ms = issue_ms(lambda: recv.acquisition(x10), 5)
     return track_ms, acq_ms
 
 
 def profile_run(iq: np.ndarray, dev) -> None:
     """One more replay of the scene under torch.profiler: the device's busy
     share of the wall time and the kernels that take it (the profiler's own
-    overhead lengthens the wall time, so the share is a lower bound)."""
+    overhead lengthens the wall time and it may lose records, ``device_ms``,
+    so the share is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -691,15 +857,33 @@ def main() -> int:
     from gypsum_tpu_torch.ops.track_block import TRACK_BLOCK_KERNEL
     from gypsum_tpu_torch.ops.wipeoff_lag import WIPEOFF_LAG_KERNEL
 
+    global EMPTY_KERNEL
+    EMPTY_KERNEL = kernels.CudaKernel(
+        "empty", "empty_launch", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     KERNELS.update(K1=FIXUP_KERNEL, K2=PEAK_REDUCE_KERNEL, K3=TRACK_BLOCK_KERNEL,
                    K4=WIPEOFF_LAG_KERNEL, K5=FIR_DECIMATE_KERNEL)
     resolve_device(dev)
     t0 = time.perf_counter()
-    built = kernels.build_all([k.source for k in KERNELS.values()])
+    built = kernels.build_all([k.source for k in (*KERNELS.values(), EMPTY_KERNEL)])
     log(f"build: {', '.join(f'{k} {v:.2f} s' for k, v in built.items())} "
         f"({time.perf_counter() - t0:.2f} s wall, nvcc sm_90a, in parallel)")
 
     sats, samples = synthetic_block(dev)
+    only = [a.partition("=")[2] for a in sys.argv[1:] if a.startswith("--kernels-only")]
+    if only:
+        # A short run for work on a kernel: the checks of the kernels named
+        # (all five without names); no replay, so no launch counts and no
+        # result line.
+        checks = {
+            "K1": lambda: check_fixup(dev, sats, samples),
+            "K2": lambda: check_peak_reduce(dev),
+            "K3": lambda: check_track_block(dev, sats, samples),
+            "K4": lambda: check_wipeoff_lag(dev, sats, samples),
+            "K5": lambda: check_fir_decimate(dev),
+        }
+        names = only[0].split(",") if only[0] else list(checks)
+        log(json.dumps({"kernels": [checks[name]() for name in names]}))
+        return 0
     k1 = check_fixup(dev, sats, samples)
     k2 = check_peak_reduce(dev)
     k5 = check_fir_decimate(dev)

@@ -68,8 +68,7 @@ def fir_decimate_cuda(planes: torch.Tensor, taps: torch.Tensor, factor: int) -> 
         raise ValueError("planes must be 8-byte aligned (I/Q pairs are loaded as one word)")
     out = torch.empty((n_out, 2), dtype=torch.float32, device=planes.device)
     FIR_DECIMATE_KERNEL.launch(
-        ctypes.c_void_p(planes.data_ptr()), ctypes.c_void_p(taps.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), n_out, t_len, factor,
+        planes.data_ptr(), taps.data_ptr(), out.data_ptr(), n_out, t_len, factor,
     )
     return out
 

@@ -320,9 +320,8 @@ def fixup_cuda(
     fin = torch.empty((N_CARRY, s_count), dtype=torch.float32, device=corr_r.device)
     cp = c_params(p)
     FIXUP_KERNEL.launch(
-        ctypes.c_void_p(init.data_ptr()), ctypes.c_void_p(corr_r.data_ptr()),
-        ctypes.c_void_p(corr_i.data_ptr()), ctypes.c_void_p(outs.data_ptr()),
-        ctypes.c_void_p(fin.data_ptr()), b_count, s_count, nle, ctypes.byref(cp),
+        init.data_ptr(), corr_r.data_ptr(), corr_i.data_ptr(), outs.data_ptr(),
+        fin.data_ptr(), b_count, s_count, nle, ctypes.byref(cp),
     )
     return fin, outs
 

@@ -39,6 +39,19 @@ NVCC_FLAGS = (
 )
 
 
+# The current stream's handle straight from the binding, where this build of
+# PyTorch has it: torch.cuda.current_stream() builds a Stream object per call,
+# which costs as much as the launch itself.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream_handle() -> int:
+    """The handle of PyTorch's current CUDA stream on the current device."""
+    if _raw_stream is not None:
+        return _raw_stream(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -100,21 +113,23 @@ class CudaKernel:
         self._fn = None
 
     def _load(self):
-        if self._fn is None:
-            build(self.source)
-            lib = ctypes.CDLL(str(library_path(self.source)))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        build(self.source)
+        lib = ctypes.CDLL(str(library_path(self.source)))
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
 
     def launch(self, *args) -> None:
         """Launch on PyTorch's current stream (appended as the last
-        argument); raises if the launch was refused."""
-        fn = self._load()
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
+        argument); raises if the launch was refused.
+
+        Pointers, ints and the stream are passed as plain Python ints
+        (``tensor.data_ptr()``): the function is bound once and its
+        ``argtypes`` convert them, so a call builds no ctypes object."""
+        fn = self._fn or self._load()
+        err = fn(*args, current_stream_handle())
         if err != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.symbol} ({self.source}.cu) failed to launch: "

@@ -172,9 +172,8 @@ def track_block_cuda(
     fin = torch.empty((N_CARRY, s_count), dtype=torch.float32, device=state_rows.device)
     cp = fx.c_params(p.loop)
     TRACK_BLOCK_KERNEL.launch(
-        ctypes.c_void_p(init.data_ptr()), ctypes.c_void_p(samples_block.data_ptr()),
-        ctypes.c_void_p(windows.data_ptr()), ctypes.c_void_p(outs.data_ptr()),
-        ctypes.c_void_p(fin.data_ptr()), b_count, s_count, nle,
+        init.data_ptr(), samples_block.data_ptr(), windows.data_ptr(), outs.data_ptr(),
+        fin.data_ptr(), b_count, s_count, nle,
         2.0 * math.pi * p.inv_fs, ctypes.byref(cp),
     )
     return fin, outs

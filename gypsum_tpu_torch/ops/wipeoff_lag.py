@@ -13,11 +13,18 @@ tiled replicas, ``params`` [S, 3] float32 rows (carrier phase, wipeoff
 frequency in Hz, window base as a float) -> [S, 2, n_lags] float32: planes
 (I, Q) of the correlation at lags prompt-K .. prompt+K in ascending order,
 with window base = (L - cp_int - K) mod L.
+
+The kernel spreads each channel over ``n_split`` thread blocks
+(``lag_split``), block r taking the samples of ``lag_segments(L, n_split)[r]``,
+and adds the blocks' partial sums in block order: two runs on the same inputs
+give the same bits. ``wipeoff_lag_segmented`` is the plain version summed the
+same way.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -26,12 +33,43 @@ from gypsum_tpu_torch.ops.correlate import ascending_lag_rows
 from gypsum_tpu_torch.ops.kernels import CudaKernel, check_cuda_tensor
 
 _MAX_LAGS = 33  # csrc/wipeoff_lag.cu:kMaxLags
+_MAX_SPLIT = 8  # csrc/wipeoff_lag.cu:kMaxSplit, the portable cluster size
 
 WIPEOFF_LAG_KERNEL = CudaKernel(
     "wipeoff_lag",
     "wipeoff_lag_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
 )
+
+
+def lag_split(s_count: int, sm_count: int) -> int:
+    """Blocks per channel: the largest power of two, at most ``_MAX_SPLIT``,
+    that keeps ``s_count`` channels within one wave of ``sm_count`` SMs (8
+    for 12 channels on 132 SMs); 1 when the channels alone fill the card."""
+    n_split = 1
+    while 2 * n_split <= _MAX_SPLIT and 2 * n_split * s_count <= sm_count:
+        n_split *= 2
+    return n_split
+
+
+def segment_length(length: int, n_split: int) -> int:
+    """Samples per block: ``length / n_split`` rounded up to whole warps."""
+    return 32 * -(-length // (32 * n_split))
+
+
+def lag_segments(length: int, n_split: int) -> list[tuple[int, int]]:
+    """``[start, stop)`` of each of the ``n_split`` blocks' samples: equal
+    segments of ``segment_length`` cut at ``length``, so they cover
+    ``[0, length)`` exactly once for any length (odd, prime, shorter than
+    ``n_split``: trailing segments are then empty). The kernel is handed
+    ``segment_length`` and applies the same cut."""
+    seg = segment_length(length, n_split)
+    return [(min(r * seg, length), min((r + 1) * seg, length)) for r in range(n_split)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check(chunk_iq, replicas_wide, params, length: int, n_lags: int) -> None:
@@ -51,11 +89,9 @@ def _check(chunk_iq, replicas_wide, params, length: int, n_lags: int) -> None:
         )
 
 
-def wipeoff_lag_reference(
-    chunk_iq: torch.Tensor, replicas_wide: torch.Tensor, params: torch.Tensor,
-    length: int, n_lags: int, inv_fs: float,
-) -> torch.Tensor:
-    """Plain version: [S, 2, n_lags] float32."""
+def _wiped_and_rows(chunk_iq, replicas_wide, params, length: int, n_lags: int, inv_fs: float):
+    """The plain version's terms: the wiped chunk's planes a, b [S, L] and
+    the lag rows [S, n_lags, L] in ascending lag order."""
     _check(chunk_iq, replicas_wide, params, length, n_lags)
     dev = chunk_iq.device
     theta, freq = params[:, 0], params[:, 1]
@@ -71,29 +107,76 @@ def wipeoff_lag_reference(
     span = torch.arange(length + n_lags - 1, device=dev)
     win = torch.gather(replicas_wide, 1, base[:, None] + span[None, :])  # [S, L + 2K]
     # Slice k starts at base + k (descending lag); flip to ascending.
-    rows = ascending_lag_rows(win, length)  # [S, n_lags, L]
+    return a, b, ascending_lag_rows(win, length)
+
+
+def _lag_dots(rows: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [torch.einsum("skl,sl->sk", rows, a), torch.einsum("skl,sl->sk", rows, b)], dim=1
     )
 
 
-def wipeoff_lag_cuda(
+def wipeoff_lag_reference(
     chunk_iq: torch.Tensor, replicas_wide: torch.Tensor, params: torch.Tensor,
     length: int, n_lags: int, inv_fs: float,
 ) -> torch.Tensor:
-    """The kernel on contiguous float32 CUDA tensors."""
+    """Plain version: [S, 2, n_lags] float32."""
+    a, b, rows = _wiped_and_rows(chunk_iq, replicas_wide, params, length, n_lags, inv_fs)
+    return _lag_dots(rows, a, b)
+
+
+def wipeoff_lag_segmented(
+    chunk_iq: torch.Tensor, replicas_wide: torch.Tensor, params: torch.Tensor,
+    length: int, n_lags: int, inv_fs: float, n_split: int,
+) -> torch.Tensor:
+    """The plain version's terms summed as the kernel sums them: one partial
+    result per segment of ``lag_segments(length, n_split)``, added in
+    segment order."""
+    a, b, rows = _wiped_and_rows(chunk_iq, replicas_wide, params, length, n_lags, inv_fs)
+    out = torch.zeros((params.shape[0], 2, n_lags), dtype=torch.float32, device=chunk_iq.device)
+    for start, stop in lag_segments(length, n_split):
+        out = out + _lag_dots(rows[:, :, start:stop], a[:, start:stop], b[:, start:stop])
+    return out
+
+
+def _check_cuda(chunk_iq, replicas_wide, params, length: int, n_lags: int) -> None:
+    """Everything the kernel needs of its arguments, in one pass; on a miss
+    the single checks run again and raise their own errors."""
+    s_count = replicas_wide.shape[0] if replicas_wide.dim() == 2 else -1
+    if (
+        chunk_iq.is_cuda and replicas_wide.is_cuda and params.is_cuda
+        and chunk_iq.dtype == replicas_wide.dtype == params.dtype == torch.float32
+        and chunk_iq.shape == (2, length) and params.shape == (s_count, 3)
+        and 1 <= n_lags <= _MAX_LAGS and n_lags % 2 == 1
+        and replicas_wide.shape[1] >= 2 * length + n_lags - 1
+        and chunk_iq.is_contiguous() and replicas_wide.is_contiguous() and params.is_contiguous()
+    ):
+        return
     _check(chunk_iq, replicas_wide, params, length, n_lags)
-    s_count, w_len = replicas_wide.shape
     check_cuda_tensor(chunk_iq, "chunk_iq", torch.float32, (2, length))
-    check_cuda_tensor(replicas_wide, "replicas_wide", torch.float32, (s_count, w_len))
+    check_cuda_tensor(replicas_wide, "replicas_wide", torch.float32, tuple(replicas_wide.shape))
     check_cuda_tensor(params, "params", torch.float32, (s_count, 3))
-    if n_lags > _MAX_LAGS:
-        raise ValueError(f"the kernel holds at most {_MAX_LAGS} lags in registers, got {n_lags}")
-    out = torch.empty((s_count, 2, n_lags), dtype=torch.float32, device=chunk_iq.device)
+    raise ValueError(f"the kernel takes at most {_MAX_LAGS} lags, got {n_lags}")
+
+
+def wipeoff_lag_cuda(
+    chunk_iq: torch.Tensor, replicas_wide: torch.Tensor, params: torch.Tensor,
+    length: int, n_lags: int, inv_fs: float, n_split: int | None = None,
+) -> torch.Tensor:
+    """The kernel on contiguous float32 CUDA tensors, ``n_split`` blocks per
+    channel: by default what ``lag_split`` gives for this card."""
+    _check_cuda(chunk_iq, replicas_wide, params, length, n_lags)
+    s_count, w_len = replicas_wide.shape
+    dev = chunk_iq.device
+    if n_split is None:
+        n_split = lag_split(s_count, _sm_count(dev.index))
+    elif not 1 <= n_split <= _MAX_SPLIT:
+        raise ValueError(f"n_split must be 1..{_MAX_SPLIT} (one cluster per channel), got {n_split}")
+    out = torch.empty((s_count, 2, n_lags), dtype=torch.float32, device=dev)
     WIPEOFF_LAG_KERNEL.launch(
-        ctypes.c_void_p(chunk_iq.data_ptr()), ctypes.c_void_p(replicas_wide.data_ptr()),
-        ctypes.c_void_p(params.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        s_count, length, w_len, n_lags, 2.0 * math.pi * inv_fs,
+        chunk_iq.data_ptr(), replicas_wide.data_ptr(), params.data_ptr(), out.data_ptr(),
+        s_count, length, w_len, n_lags, n_split, segment_length(length, n_split),
+        2.0 * math.pi * inv_fs,
     )
     return out
 
@@ -107,6 +190,8 @@ def wipeoff_lag_correlate(
     if chunk_iq.device.type == "cpu":
         return wipeoff_lag_reference(chunk_iq, replicas_wide, params, length, n_lags, inv_fs)
     return wipeoff_lag_cuda(
-        chunk_iq.contiguous(), replicas_wide.contiguous(), params.contiguous(),
+        chunk_iq if chunk_iq.is_contiguous() else chunk_iq.contiguous(),
+        replicas_wide if replicas_wide.is_contiguous() else replicas_wide.contiguous(),
+        params if params.is_contiguous() else params.contiguous(),
         length, n_lags, inv_fs,
     )

@@ -21,7 +21,9 @@ the correlator, which comes in three forms as in the JAX package:
 - per-ms plain (``hoist_lag_window=False``): a fresh 2K+1 window per ms;
 - per-ms through kernel K4 (``use_pallas_correlator=True``,
   ``ops/wipeoff_lag.py``), which overrides ``hoist_lag_window`` and is not
-  used for a farm (the kernel takes one shared stream).
+  used for a farm (the kernel takes one shared stream). The block's I/Q
+  planes ``[B, 2, L]`` are laid out once per block and the kernel is handed
+  ``planes[b]``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
-from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex
+from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex, to_planes
 from gypsum_tpu_torch.ops import fixup as fx
 from gypsum_tpu_torch.ops.correlate import ascending_lag_rows, lag_window
 from gypsum_tpu_torch.ops.wipeoff_lag import wipeoff_lag_correlate
@@ -107,6 +109,8 @@ def make_scan_track_block_fn(
 
     def make_per_ms(replicas_wide: torch.Tensor, off: torch.Tensor):
         def correlate(carry, chunk):
+            """``chunk``: the ms as complex [1, L] or [S, L]; on the kernel
+            route as its I/Q planes [2, L]."""
             cp_int = torch.remainder(torch.floor(carry.cp).to(torch.int64), length)
             if use_kernel:
                 base = torch.remainder(length - cp_int - k_half, length)
@@ -114,8 +118,7 @@ def make_scan_track_block_fn(
                     [carry.th, carry.fd + off, base.to(torch.float32)], dim=-1
                 )  # [S, 3]
                 planes = wipeoff_lag_correlate(
-                    torch.stack([chunk[0].real, chunk[0].imag]), replicas_wide, kernel_params,
-                    length, n_lags, 1.0 / fs,
+                    chunk, replicas_wide, kernel_params, length, n_lags, 1.0 / fs,
                 )  # [S, 2, n_lags]
                 return cp_int, planes[:, 0], planes[:, 1]
             xr, xi = wipe(carry, off, chunk)
@@ -127,7 +130,12 @@ def make_scan_track_block_fn(
 
     def track_block_packed(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
         state = device_state(state, device)
-        if samples_block.is_complex():
+        if use_kernel:
+            # The kernel's [2, L] planes of every ms, laid out once per block.
+            planes = (to_planes(samples_block) if samples_block.is_complex()
+                      else dequantize_planes(samples_block, input_offset))
+            chunks = planes.permute(0, 2, 1).contiguous()  # [B, 2, L]
+        elif samples_block.is_complex():
             chunks = samples_block.to(torch.complex64)
         else:
             chunks = to_complex(dequantize_planes(samples_block, input_offset))
@@ -140,7 +148,10 @@ def make_scan_track_block_fn(
         b_count = chunks.shape[0]
         outs = torch.empty((b_count, fx.N_OUT, n_channels), dtype=torch.float32, device=device)
         for b in range(b_count):
-            chunk = chunks[b][None, :] if farm_idx is None else chunks[b][farm_idx]
+            if use_kernel:
+                chunk = chunks[b]
+            else:
+                chunk = chunks[b][None, :] if farm_idx is None else chunks[b][farm_idx]
             cp_int, sel_r, sel_i = correlate(carry, chunk)
             # NCO advance for the elapsed chunk, with the frequency the chunk
             # was wiped with.

@@ -26,9 +26,12 @@ from gypsum_tpu.track.loop import make_track_block_fn as jax_track_block_fn
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.ops.wipeoff_lag import (
     WIPEOFF_LAG_KERNEL,
+    lag_segments,
+    lag_split,
     wipeoff_lag_correlate,
     wipeoff_lag_cuda,
     wipeoff_lag_reference,
+    wipeoff_lag_segmented,
 )
 from gypsum_tpu_torch.track.loop import make_track_block_fn
 
@@ -172,6 +175,79 @@ def test_k4_plain_version_matches_the_tpu_kernel(s_count, k_half, zero_doppler):
             np.testing.assert_allclose(got[s, 1], corr.imag, rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("n_split", [1, 8, 16])
+@pytest.mark.parametrize("length", [1, 7, 2046, 2047, 4092])
+def test_k4_segments_cover_the_ms_exactly_once(length, n_split):
+    segments = lag_segments(length, n_split)
+    assert len(segments) == n_split
+    covered = np.zeros(length, np.int64)
+    for start, stop in segments:
+        assert 0 <= start <= stop <= length
+        covered[start:stop] += 1
+    np.testing.assert_array_equal(covered, 1)
+    # In block order: each segment begins where the one before it ended.
+    assert [a for a, _ in segments[1:]] == [b for _, b in segments[:-1]]
+
+
+@pytest.mark.parametrize("s_count,want", [(1, 8), (12, 8), (16, 8), (17, 4), (64, 2), (67, 1), (500, 1)])
+def test_k4_split_keeps_the_grid_within_one_wave(s_count, want):
+    assert lag_split(s_count, 132) == want
+    assert lag_split(s_count, 132) * s_count <= max(132, s_count)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 8])
+@pytest.mark.parametrize("s_count,k_half", [(8, 4), (12, 16), (4, 0)])
+def test_k4_plain_version_summed_by_segments(s_count, k_half, n_split):
+    """The kernel's sum order (one partial sum per block, added in block
+    order) on the plain version's terms: within 1e-6 of scale of the unsplit
+    plain version, and within the file's bar of the TPU kernel."""
+    n_lags = 2 * k_half + 1
+    chunk_iq, replicas, params, _, _ = _k4_inputs(5, s_count, k_half)
+    args = (torch.from_numpy(chunk_iq), torch.from_numpy(replicas), torch.from_numpy(params),
+            L, n_lags, 1.0 / FS)
+    whole = wipeoff_lag_reference(*args).numpy()
+    split = wipeoff_lag_segmented(*args, n_split).numpy()
+    assert split.shape == whole.shape == (s_count, 2, n_lags)
+    np.testing.assert_allclose(split, whole, atol=1e-6 * np.abs(whole).max())
+    want = np.asarray(wipeoff_lag_correlate_pallas(
+        jnp.asarray(chunk_iq), jnp.asarray(replicas), jnp.asarray(params),
+        length=L, n_lags=n_lags, inv_fs=1.0 / FS))
+    np.testing.assert_allclose(split, want, atol=1e-4 * np.abs(want).max())
+
+
+def test_scan_with_kernel_correlator_takes_planes_once_per_block(monkeypatch):
+    """On the kernel route the scan lays the block's planes out once and
+    hands the wrapper a contiguous [2, L] view per ms, for complex blocks and
+    for [B, L, 2] planes alike."""
+    from gypsum_tpu_torch.track import scan
+
+    S, B = 2, 3
+    rng = np.random.default_rng(2)
+    iq = (rng.standard_normal((B, L)) + 1j * rng.standard_normal((B, L))).astype(np.complex64)
+    replicas = np.tile(_wide()[8][None, :], (S, 1))
+    seen = []
+
+    def spy(chunk, *args):
+        seen.append(chunk)
+        return wipeoff_lag_correlate(chunk, *args)
+
+    monkeypatch.setattr(scan, "wipeoff_lag_correlate", spy)
+    f = make_track_block_fn(
+        TrackingConfig(block_size_ms=B, use_pallas_correlator=True, **SCAN), L, FS, S, device="cpu")
+    outs = []
+    for block in (torch.from_numpy(iq), torch.from_numpy(to_planes(iq))):
+        seen.clear()
+        outs.append(f.packed(fresh_state(S), block, torch.from_numpy(replicas))[1])
+        assert len(seen) == B
+        for b, chunk in enumerate(seen):
+            assert chunk.shape == (2, L) and chunk.is_contiguous()
+            np.testing.assert_array_equal(chunk[0].numpy(), iq[b].real)
+            np.testing.assert_array_equal(chunk[1].numpy(), iq[b].imag)
+        # One [B, 2, L] buffer: the views share their storage.
+        assert len({chunk.untyped_storage().data_ptr() for chunk in seen}) == 1
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_k4_rejects_bad_shapes():
     chunk_iq, replicas, params, _, _ = _k4_inputs(1, 4, 4)
     t = lambda a: torch.from_numpy(a)
@@ -183,3 +259,10 @@ def test_k4_rejects_bad_shapes():
         wipeoff_lag_reference(t(chunk_iq), t(replicas), t(params), L, 8, 1.0 / FS)
     with pytest.raises(ValueError, match="CUDA tensor"):
         wipeoff_lag_cuda(t(chunk_iq), t(replicas), t(params), L, 9, 1.0 / FS)
+    # The kernel route's one combined check raises the single checks' errors.
+    with pytest.raises(ValueError, match="chunk_iq"):
+        wipeoff_lag_cuda(t(chunk_iq[:, :100]), t(replicas), t(params), L, 9, 1.0 / FS)
+    with pytest.raises(ValueError, match="odd"):
+        wipeoff_lag_cuda(t(chunk_iq), t(replicas), t(params), L, 8, 1.0 / FS)
+    with pytest.raises(ValueError, match="params \\[S, 3\\]"):
+        wipeoff_lag_cuda(t(chunk_iq), t(replicas), t(params[:, :2]), L, 9, 1.0 / FS)
