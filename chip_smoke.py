@@ -10,7 +10,10 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    (``csrc/empty.cu``, the yardstick of a launch);
 3. each kernel against its plain PyTorch version, timed beside its bound:
    K1 (loop-filter fixup) on the correlations of a real phase-1 pass over a
-   synthesized 1000 ms block (12 channels, NLE 35), triangle and HRC;
+   synthesized 1000 ms block (12 channels, NLE 35), triangle and HRC at the
+   default K = 4 (the kernel's unrolled instantiation) and triangle at
+   K = 2 (its generic one), every output and carry row identical to the
+   bit;
    K2 (acquisition peak reduce) on the real [928, 2046] coarse grid, odd
    sizes, rows shorter than one 16-byte load, a row count the blocks do not
    divide, views 4 and 12 bytes into their storage, planted ties and rows
@@ -20,7 +23,9 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    that block with the bank's (theta, f, base), on 1 to 64 channels, three
    lengths, 1 to 33 lags and 1 to 8 blocks per channel, each run twice and
    the two runs held equal to the bit; K3 (whole-block tracker) on that
-   block.
+   block at K = 4 and K = 3 (its two instantiations), each run twice and
+   held equal to the bit, its bound counting the 2K+1 lags the loop filter
+   reads (not all NLE of the window).
 
    Every kernel, its plain version and its library call are timed two ways
    (``two_way``), in turns within this one run. The **issue time** is what
@@ -238,12 +243,16 @@ def check_fixup(dev, sats, samples) -> dict:
 
     b_ms, n_ch = B_MS, N_CH
     worst = 0.0
-    for meas in ("triangle", "hrc"):
-        bank, replicas = checks_bank(sats, dev, TrackingConfig(code_phase_measurement=meas))
+    # K = 4 (the default; the kernel's unrolled instantiation) with both
+    # measurements, and K = 2, which runs the generic instantiation.
+    for meas, k_half in (("triangle", 4), ("hrc", 4), ("triangle", 2)):
+        cfg = TrackingConfig(code_phase_measurement=meas, lag_window_half_width=k_half)
+        bank, replicas = checks_bank(sats, dev, cfg)
         _, init, corr_r, corr_i = bank._fn.phase1(bank.state, samples, replicas)
         params = bank._fn.fixup_params
-        if corr_r.shape != (b_ms, n_ch, 35):
+        if corr_r.shape != (b_ms, n_ch, 35 - 2 * (4 - k_half)):
             raise AssertionError(f"unexpected phase-1 shape {tuple(corr_r.shape)}")
+        meas = f"{meas} K={k_half}"
         fin_k, outs_k = fx.fixup_cuda(init, corr_r, corr_i, params)
         fin_p, outs_p = fx.fixup_reference(init, corr_r, corr_i, params)
         torch.cuda.synchronize()
@@ -254,29 +263,30 @@ def check_fixup(dev, sats, samples) -> dict:
                 raise AssertionError(f"K1 {meas}: output row {row} (locked/lost) differs")
         if not torch.equal(fin_k[fx.STEP], fin_p[fx.STEP]) or not torch.equal(fin_k[fx.LOST], fin_p[fx.LOST]):
             raise AssertionError(f"K1 {meas}: step count or lost flag differs")
-        # Tolerance: 1e-4 of each row's scale (the JAX package's own bar for
-        # its fixup kernel against its scan, tests/test_matmul_tracker.py);
-        # the two sides use the same float32 operation order, and only the
-        # card's cosf/sinf/expf against PyTorch's may differ in the last bit.
+        # Tolerance: none. The two sides run the same float32 operations in
+        # the same order (the kernel's branch-free divisions and floor-mods
+        # keep a result only where they prove it exact, and redo the chunk
+        # otherwise: tests/test_torch_fixup.py), and the card's sincosf and
+        # expf against PyTorch's cos, sin and exp: every output and carry row
+        # must be identical to the bit.
         for name, a, b in (("outs", outs_k, outs_p), ("fin", fin_k, fin_p)):
             diff = (a - b).abs()
-            scale = b.abs().amax(dim=(0, 2) if name == "outs" else 1).clamp(min=1.0)
-            rows_err = diff.amax(dim=(0, 2) if name == "outs" else 1)
-            if bool((rows_err > 1e-4 * scale).any()):
-                raise AssertionError(f"K1 {meas} {name}: per-row max error {rows_err.tolist()}")
             worst = max(worst, float(diff.max()))
+            if not torch.equal(a, b):
+                rows_err = diff.amax(dim=(0, 2) if name == "outs" else 1)
+                raise AssertionError(f"K1 {meas} {name}: not identical to the bit, per-row max "
+                                     f"error {rows_err.tolist()}")
         locked = int(outs_k[-1, fx.O_LOCKED].sum())
-        log(f"K1 {meas}: kernel == plain (locked/lost/step exact, max |err| {worst:.3g}); "
+        log(f"K1 {meas}: kernel == plain, identical to the bit (max |err| {worst:.3g}); "
             f"{locked}/{n_ch} channels locked at block end")
-        if meas == "triangle":
+        if meas == "triangle K=4":
             # The plain version (1000 Python steps, some 128 000 launches)
             # has just run: one call, no warm-up of its own.
             times = two_way({
                 "kernel": (lambda: fx.fixup_cuda(init, corr_r, corr_i, params), 20, 2),
                 "plain": (lambda: fx.fixup_reference(init, corr_r, corr_i, params), 1, 0),
             })
-    b_count, s_count, nle = corr_r.shape
-    n_lags = 2 * params.k_half + 1
+            (b_count, s_count, nle), n_lags = corr_r.shape, 2 * params.k_half + 1
     # Bytes the function needs: per ms and channel only the 2K+1 lags around
     # the prompt of corr_r and corr_i (not all NLE), the outputs, and the
     # carry in and out.
@@ -551,59 +561,76 @@ def check_track_block(dev, sats, samples) -> dict:
     from gypsum_tpu_torch.ops import track_block as tb
     from gypsum_tpu_torch.track.loop import carry_rows, device_state
 
-    cfg = TrackingConfig()
-    bank, replicas = checks_bank(sats, dev, cfg, off_air=False)
-    params = tb.TrackBlockParams.from_config(cfg, L, FS)
-    state = device_state(bank.state, dev)
-    rows = torch.stack([*carry_rows(state), torch.zeros(N_CH, device=dev)]).contiguous()
     planes = to_planes(samples).contiguous()
-    nle = 2 * params.k_eff + 1
-    fin_k, outs_k = tb.track_block_cuda(rows, planes, replicas, params)
-    fin_p, outs_p = tb.track_block_reference(rows, planes, replicas, params)
-    torch.cuda.synchronize()
-    if outs_k.shape != (B_MS, fx.N_OUT, N_CH) or fin_k.shape != (tb.N_CARRY, N_CH):
-        raise AssertionError(f"K3 shapes {tuple(outs_k.shape)}, {tuple(fin_k.shape)}")
-    for name, t in (("kernel outs", outs_k), ("kernel carry", fin_k), ("plain outs", outs_p)):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"K3 {name}: non-finite values")
-    for row in (fx.O_LOCKED, fx.O_LOST):
-        if not torch.equal(outs_k[:, row], outs_p[:, row]):
-            n_diff = int((outs_k[:, row] != outs_p[:, row]).sum())
-            raise AssertionError(f"K3: output row {row} (locked/lost) differs at {n_diff} places")
-    for row in (fx.STEP, fx.LOST, fx.CPI0):
-        if not torch.equal(fin_k[row], fin_p[row]):
-            raise AssertionError(f"K3: carry row {row} (step/lost/window center) differs")
-    # Tolerance: the JAX package's own bar for this kernel against its scan,
-    # 2e-3 of each row's scale on the carry and 5e-3 on the outputs. The
-    # multiply-reduce over 2046 samples sums in another order than the plain
-    # version's, and 1000 ms of loop filter integrate the difference.
     worst, worst_rel = 0.0, 0.0
-    for name, a, b, tol in (("outs", outs_k, outs_p, 5e-3), ("fin", fin_k, fin_p, 2e-3)):
-        dims = (0, 2) if name == "outs" else 1
-        scale = b.abs().amax(dim=dims).clamp(min=1.0)
-        rows_err = (a - b).abs().amax(dim=dims)
-        if bool((rows_err > tol * scale).any()):
-            raise AssertionError(f"K3 {name}: per-row max error {rows_err.tolist()} at scale {scale.tolist()}")
-        worst = max(worst, float(rows_err.max()))
-        worst_rel = max(worst_rel, float((rows_err / scale).max()))
-    locked = int(outs_k[-1, fx.O_LOCKED].sum())
-    # The plain version (1000 Python steps) has just run: one call, no
-    # warm-up of its own.
-    times = two_way({
-        "kernel": (lambda: tb.track_block_cuda(rows, planes, replicas, params), 5, 2),
-        "plain": (lambda: tb.track_block_reference(rows, planes, replicas, params), 1, 0),
-    })
+    # K = 4 (the default; the kernel's unrolled instantiation), timed, and
+    # K = 3, which runs the generic instantiation.
+    for k_half in (4, 3):
+        cfg = TrackingConfig(lag_window_half_width=k_half)
+        bank, replicas = checks_bank(sats, dev, cfg, off_air=False)
+        params = tb.TrackBlockParams.from_config(cfg, L, FS)
+        state = device_state(bank.state, dev)
+        rows = torch.stack([*carry_rows(state), torch.zeros(N_CH, device=dev)]).contiguous()
+        nle = 2 * params.k_eff + 1
+        fin_k, outs_k = tb.track_block_cuda(rows, planes, replicas, params)
+        again = tb.track_block_cuda(rows, planes, replicas, params)
+        fin_p, outs_p = tb.track_block_reference(rows, planes, replicas, params)
+        torch.cuda.synchronize()
+        what = f"K3 K={k_half}"
+        if outs_k.shape != (B_MS, fx.N_OUT, N_CH) or fin_k.shape != (tb.N_CARRY, N_CH):
+            raise AssertionError(f"{what} shapes {tuple(outs_k.shape)}, {tuple(fin_k.shape)}")
+        for name, t in (("kernel outs", outs_k), ("kernel carry", fin_k), ("plain outs", outs_p)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{what} {name}: non-finite values")
+        if not (torch.equal(again[0], fin_k) and torch.equal(again[1], outs_k)):
+            raise AssertionError(f"{what}: two runs on the same inputs differ")
+        for row in (fx.O_LOCKED, fx.O_LOST):
+            if not torch.equal(outs_k[:, row], outs_p[:, row]):
+                n_diff = int((outs_k[:, row] != outs_p[:, row]).sum())
+                raise AssertionError(f"{what}: output row {row} (locked/lost) differs at {n_diff} places")
+        for row in (fx.STEP, fx.LOST, fx.CPI0):
+            if not torch.equal(fin_k[row], fin_p[row]):
+                raise AssertionError(f"{what}: carry row {row} (step/lost/window center) differs")
+        # Tolerance: the JAX package's own bar for this kernel against its
+        # scan, 2e-3 of each row's scale on the carry and 5e-3 on the outputs.
+        # The multiply-reduce over 2046 samples sums in another order than
+        # the plain version's, and 1000 ms of loop filter integrate the
+        # difference.
+        for name, a, b, tol in (("outs", outs_k, outs_p, 5e-3), ("fin", fin_k, fin_p, 2e-3)):
+            dims = (0, 2) if name == "outs" else 1
+            scale = b.abs().amax(dim=dims).clamp(min=1.0)
+            rows_err = (a - b).abs().amax(dim=dims)
+            if bool((rows_err > tol * scale).any()):
+                raise AssertionError(
+                    f"{what} {name}: per-row max error {rows_err.tolist()} at scale {scale.tolist()}")
+            worst = max(worst, float(rows_err.max()))
+            worst_rel = max(worst_rel, float((rows_err / scale).max()))
+        locked = int(outs_k[-1, fx.O_LOCKED].sum())
+        log(f"{what} track_block [{B_MS}, {L}, 2] x {N_CH} channels, NLE {nle}: kernel == plain "
+            f"(locked/lost/step/window centre exact; max |err| so far {worst:.3g}, {worst_rel:.3g} "
+            f"of row scale; bars 5e-3 outputs, 2e-3 carry; two runs equal to the bit); "
+            f"{locked}/{N_CH} channels locked at block end")
+        if k_half == 4:
+            # The plain version (1000 Python steps) has just run: one call,
+            # no warm-up of its own.
+            timed_params = params
+            times = two_way({
+                "kernel": (lambda: tb.track_block_cuda(rows, planes, replicas, params), 5, 2),
+                "plain": (lambda: tb.track_block_reference(rows, planes, replicas, params), 1, 0),
+            })
+    params = timed_params
     # Bytes: the block's samples and the S windows once, the outputs, the
-    # carry in and out. Operations: per ms and channel, 2 NLE dot products of
-    # L multiply-adds and ~12 L for the wipeoff.
+    # carry in and out. Operations: per ms and channel, the 2 (2K+1) dot
+    # products of L multiply-adds that the function needs (the loop filter
+    # reads only the 2K+1 lags around the prompt, as K1's bound counts them,
+    # not all NLE of the window), and ~12 L for the wipeoff.
+    n_lags = 2 * params.loop.k_half + 1
     n_bytes = 4 * (2 * B_MS * L + N_CH * (L + 2 * params.k_eff) + B_MS * fx.N_OUT * N_CH
                    + 2 * tb.N_CARRY * N_CH)
-    n_ops = B_MS * N_CH * (2 * nle * L * 2 + 12 * L)
+    n_ops = B_MS * N_CH * (2 * n_lags * L * 2 + 12 * L)
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    log(f"K3 track_block [{B_MS}, {L}, 2] x {N_CH} channels, NLE {nle}: kernel == plain "
-        f"(locked/lost/step exact; max |err| {worst:.3g}, {worst_rel:.3g} of row scale; bars 5e-3 "
-        f"outputs, 2e-3 carry); {locked}/{N_CH} channels locked at block end; "
-        f"bound {bound_ms:.4f} ms ({bound_by}, {n_ops / 1e9:.2f} GFLOP)")
+    log(f"K3 bound at [{B_MS}, {L}, 2] x {N_CH} channels, {n_lags} lags: {bound_ms:.4f} ms "
+        f"({bound_by}, {n_ops / 1e9:.2f} GFLOP)")
     return {
         "name": "K3 track_block",
         "route": "cuda",

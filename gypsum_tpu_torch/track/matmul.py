@@ -34,6 +34,7 @@ import torch
 
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
+from gypsum_tpu_torch.core.device import resolve_device
 from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex
 from gypsum_tpu_torch.ops import fixup as fx
 from gypsum_tpu_torch.ops.correlate import ascending_lag_rows, lag_window
@@ -75,9 +76,10 @@ def make_matmul_track_block_fn(
     n_channels: int,
     stream_of_channel: np.ndarray | None = None,
     input_offset: float = 0.0,
-    device: torch.device = torch.device("cpu"),
+    device: str | torch.device = "cuda",
 ):
-    """Build the two-phase block tracker on ``device``.
+    """Build the two-phase block tracker on ``device`` (resolved by
+    ``core.device.resolve_device``: CUDA unless the caller asks for the CPU).
 
     Returns ``f(state, samples_block, replicas_wide) -> (state', outputs)``:
     ``state`` is a TrackState of [S] leaves (numpy or tensors),
@@ -95,6 +97,7 @@ def make_matmul_track_block_fn(
         state_from_carry,
     )
 
+    device = resolve_device(device)
     cfg = config
     length = int(samples_per_prn)
     fs = float(sample_rate)

@@ -35,6 +35,7 @@ import torch
 
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
+from gypsum_tpu_torch.core.device import resolve_device
 from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex, to_planes
 from gypsum_tpu_torch.ops import fixup as fx
 from gypsum_tpu_torch.ops.correlate import ascending_lag_rows, lag_window
@@ -48,10 +49,11 @@ def make_scan_track_block_fn(
     n_channels: int,
     stream_of_channel: np.ndarray | None = None,
     input_offset: float = 0.0,
-    device: torch.device = torch.device("cpu"),
+    device: str | torch.device = "cuda",
 ):
-    """Build the scan tracker on ``device``; the contract of
-    track/matmul.py:make_matmul_track_block_fn (``f.packed`` included)."""
+    """Build the scan tracker on ``device`` (CUDA unless the caller asks for
+    the CPU); the contract of track/matmul.py:make_matmul_track_block_fn
+    (``f.packed`` included)."""
     from gypsum_tpu_torch.track.loop import (
         block_fn_from_packed,
         carry_rows,
@@ -59,6 +61,7 @@ def make_scan_track_block_fn(
         state_from_carry,
     )
 
+    device = resolve_device(device)
     cfg = config
     length = int(samples_per_prn)
     fs = float(sample_rate)

@@ -171,7 +171,7 @@ def test_farm_mode_matches_jax():
     )
     js, jo = jfarm(_jax_cfg(B), L, FS, s_total, stream_of_channel)(
         st, jnp.asarray(planes), jnp.asarray(replicas))
-    ts, to = make_matmul_track_block_fn(_cfg(B), L, FS, s_total, stream_of_channel)(
+    ts, to = make_matmul_track_block_fn(_cfg(B), L, FS, s_total, stream_of_channel, device="cpu")(
         st, torch.from_numpy(planes), torch.from_numpy(replicas))
     _compare(ts, to, js, jo)
 
@@ -212,12 +212,12 @@ def test_scan_fixup_on_the_card_raises_and_runs_plain_on_cpu():
     replicas = torch.from_numpy(_replicas(9, S))
     st = fresh_state(S)
     st = st._replace(doppler=st.doppler + 700.0, code_phase=st.code_phase + 100.0)
-    _, o_scan = make_matmul_track_block_fn(_cfg(B, fixup_backend="scan"), L, FS, S)(st, iq, replicas)
-    _, o_none = make_matmul_track_block_fn(_cfg(B), L, FS, S)(st, iq, replicas)
+    _, o_scan = make_matmul_track_block_fn(_cfg(B, fixup_backend="scan"), L, FS, S, device="cpu")(st, iq, replicas)
+    _, o_none = make_matmul_track_block_fn(_cfg(B), L, FS, S, device="cpu")(st, iq, replicas)
     assert torch.equal(o_scan.prompt_i, o_none.prompt_i)
     assert torch.equal(o_scan.locked, o_none.locked)
     with pytest.raises(ValueError, match="fixup_backend"):
-        make_matmul_track_block_fn(_cfg(48, fixup_backend="mosaic"), L, FS, 4)
+        make_matmul_track_block_fn(_cfg(48, fixup_backend="mosaic"), L, FS, 4, device="cpu")
 
 
 def test_raw_uint8_planes_dequantize_on_the_device():
@@ -240,3 +240,52 @@ def test_raw_uint8_planes_dequantize_on_the_device():
     b = run(deq.astype(np.complex64), 0.0)
     np.testing.assert_array_equal(a.prompts, b.prompts)
     np.testing.assert_array_equal(a.code_phases_measured, b.code_phases_measured)
+
+
+def _builder(name):
+    if name == "matmul":
+        return make_matmul_track_block_fn
+    from gypsum_tpu_torch.track.scan import make_scan_track_block_fn
+
+    return make_scan_track_block_fn
+
+
+@pytest.mark.parametrize("name", ["matmul", "scan"])
+def test_builders_default_to_the_card(name):
+    """Both builders resolve their device as every other entry point does:
+    CUDA unless the caller asks for the CPU, and a RuntimeError, not a quiet
+    CPU run, where there is no card."""
+    build = _builder(name)
+    if torch.cuda.is_available():
+        fn = build(_cfg(48), L, FS, 4)
+        assert callable(fn) and callable(fn.packed)
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            build(_cfg(48), L, FS, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        build(_cfg(48), L, FS, 4, device="mps")
+
+
+@pytest.mark.parametrize("name", ["matmul", "scan"])
+def test_builders_on_the_cpu_match_jax(name):
+    """With device="cpu" each builder, called directly, tracks a block as the
+    JAX package's own tracker of the same kind does."""
+    S, B = 4, 48
+    sat = SyntheticSatellite(prn=9, doppler_hz=700.0, delay_samples=100, amplitude=0.3)
+    iq = synthesize_iq([sat], B * L, FS, noise_sigma=0.2, seed=9).reshape(B, L)
+    replicas = _replicas(9, S)
+    st = fresh_state(S)
+    st = st._replace(doppler=st.doppler + 700.0, code_phase=st.code_phase + 100.0)
+    if name == "matmul":
+        js, jo = jax_matmul_fn(_jax_cfg(B), L, FS, S)(st, jnp.asarray(to_planes(iq)), jnp.asarray(replicas))
+        cfg = _cfg(B)
+    else:
+        from gypsum_tpu.track.loop import make_track_block_fn as jax_track_block_fn
+
+        scan = dict(use_matmul_tracker=False, use_pallas_block_tracker=False)
+        js, jo = jax_track_block_fn(JaxTrackingConfig(block_size_ms=B, **scan), L, FS, S)(
+            st, jnp.asarray(to_planes(iq)), jnp.asarray(replicas))
+        cfg = _cfg(B, **scan)
+    ts, to = _builder(name)(cfg, L, FS, S, device="cpu")(
+        st, torch.from_numpy(iq), torch.from_numpy(replicas))
+    _compare(ts, to, js, jo)
