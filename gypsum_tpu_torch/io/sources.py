@@ -287,7 +287,9 @@ class DecimatingSampleSource(SampleSource):
 
     The filter runs on ``device``. With ``up == 1`` it goes through
     ``ops/fir_decimate.py:fir_decimate``, which launches the hand-written
-    decimation kernel on a CUDA device; a rational ratio runs the plain
+    decimation kernel on a CUDA device (with the taps reversed: the kernel
+    convolves, as the TPU kernel does, and this source correlates, as the
+    JAX package's source does); a rational ratio runs the plain
     polyphase resampler there. The ``SampleSource`` contract hands numpy
     blocks to the receiver (which reads them on the host for acquisition and
     uploads them for tracking), so each block's raw samples cross to the
@@ -366,7 +368,11 @@ class DecimatingSampleSource(SampleSource):
         from gypsum_tpu_torch.ops.fir_decimate import fir_decimate
 
         if self._taps_device is None:
-            self._taps_device = torch.from_numpy(self.taps).to(self.device)
+            # K5 runs its taps reversed, as the TPU kernel does; the JAX
+            # source's strided convolution runs them as given. Reversed once
+            # here, the two compute the same.
+            taps = self.taps[::-1] if self.up == 1 else self.taps
+            self._taps_device = torch.from_numpy(np.ascontiguousarray(taps)).to(self.device)
         planes = torch.view_as_real(torch.from_numpy(np.ascontiguousarray(chunk))).to(self.device)
         if self.up == 1:
             y = fir_decimate(planes, self._taps_device, self.down)

@@ -24,9 +24,15 @@ from gypsum_tpu_torch.io.sources import ArraySampleSource, DecimatingSampleSourc
 from gypsum_tpu_torch.ops import decimate as tdec
 from gypsum_tpu_torch.ops.fir_decimate import (
     FIR_DECIMATE_KERNEL,
+    MAX_SMEM_BYTES,
+    OUTPUTS_PER_BLOCK,
+    OUTPUTS_PER_THREAD,
+    THREADS,
     fir_decimate,
     fir_decimate_cuda,
     fir_decimate_reference,
+    launch_plan,
+    swizzle,
 )
 
 
@@ -63,15 +69,41 @@ def test_fir_decimate_matches_jax_and_the_tpu_kernel(factor, n):
 
 
 def test_taps_run_as_the_convolution_oracle_says():
-    """An asymmetric filter shows the direction: a correlation with the taps
-    as given (tests/test_decimate.py:_upfirdn_oracle), as in the JAX package."""
-    x = _noise(500, 1)
+    """An asymmetric filter shows the direction. The source correlates with
+    the taps as given (tests/test_decimate.py:_upfirdn_oracle), as the JAX
+    package's source does; its plain strided convolution does the same; K5
+    convolves (the taps reversed, as the TPU kernel does), so the source
+    hands it the taps reversed."""
+    x = _noise(3 * 1000 + 40, 1)
     taps = np.linspace(0.1, 1.0, 13).astype(np.float32)
-    got = fir_decimate_reference(torch.from_numpy(to_planes(x)), torch.from_numpy(taps), 3).numpy()
-    want = np.array([np.dot(taps, x[m * 3 : m * 3 + 13]) for m in range(got.shape[0])])
-    np.testing.assert_allclose(got[:, 0] + 1j * got[:, 1], want, rtol=1e-4, atol=1e-5)
-    jax_out = np.asarray(jdec.fir_decimate_planes(jnp.asarray(to_planes(x)), jnp.asarray(taps), 3))
-    np.testing.assert_allclose(got, jax_out, rtol=1e-4, atol=1e-5)
+    src = DecimatingSampleSource(ArraySampleSource(x, 3000.0), 1000.0, taps=taps, device="cpu")
+    assert (src.up, src.down) == (1, 3)
+    got = src.read_block(1000)[1].ravel()  # one output per ms
+    # Output k of the first block reads x[3 k + t], t < 13.
+    want = np.array([np.dot(taps, x[k * 3 : k * 3 + 13]) for k in range(1000)])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    planes = torch.from_numpy(to_planes(x))
+    corr = tdec.fir_decimate_planes(planes, torch.from_numpy(taps), 3).numpy()
+    np.testing.assert_allclose(corr[:1000, 0] + 1j * corr[:1000, 1], want, rtol=1e-4, atol=1e-5)
+    conv = fir_decimate(planes, torch.from_numpy(taps[::-1].copy()), 3).numpy()
+    np.testing.assert_allclose(conv, corr, rtol=1e-4, atol=1e-5)
+
+
+def test_fir_decimate_matches_the_tpu_kernel_on_asymmetric_taps():
+    """K5 computes what fir_decimate_pallas computes, the taps reversed: on
+    asymmetric taps a correlation with the taps as given differs by up to
+    7.2 on outputs of magnitude up to 8.1."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(5_000) + 1j * rng.standard_normal(5_000)).astype(np.complex64)
+    taps = np.linspace(0.1, 1.0, 13).astype(np.float32)
+    want = np.asarray(fir_decimate_pallas(x, taps, 3, interpret=True))
+    for arg in (torch.from_numpy(to_planes(x)), torch.from_numpy(x)):
+        got = fir_decimate(arg, torch.from_numpy(taps), 3).numpy()
+        assert got.shape == want.shape == ((5_000 - 13) // 3 + 1, 2)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(
+        fir_decimate_reference(torch.from_numpy(to_planes(x)), torch.from_numpy(taps), 3).numpy(),
+        want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("up,down,n,tpp", [(3, 7, 800, 6), (1023, 5000, 30_000, 10), (2, 3, 1001, 4)])
@@ -121,6 +153,145 @@ def test_streaming_source_matches_jax_block_by_block(fs_in, ratio, block_ms):
     # Default taps are the JAX source's too.
     np.testing.assert_array_equal(
         DecimatingSampleSource(ArraySampleSource(x, fs_in), 2.046e6, device="cpu").taps, jsrc.taps)
+
+
+def test_streaming_source_matches_jax_with_asymmetric_taps():
+    """Both packages' sources on an asymmetric filter, block by block: the
+    port's source hands K5 the taps reversed, so it still correlates as the
+    JAX source does."""
+    fs_in, block_ms = 8.184e6, 2
+    x = _noise(int((3 * block_ms + 2) * fs_in / 1000), 13)
+    taps = np.linspace(0.1, 1.0, 41).astype(np.float32) * np.float32(0.05)
+    jsrc = JaxDecimatingSource(JaxArraySource(x, fs_in), 2.046e6, taps=taps)
+    tsrc = DecimatingSampleSource(ArraySampleSource(x, fs_in), 2.046e6, taps=taps, device="cpu")
+    np.testing.assert_array_equal(tsrc.taps, taps)  # the public taps stay as given
+    for _ in range(3):
+        ts_j, want = jsrc.read_block(block_ms)
+        ts_t, got = tsrc.read_block(block_ms)
+        assert ts_t == ts_j and got.shape == want.shape == (block_ms, 2046)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _emulate_kernel(planes: np.ndarray, taps: np.ndarray, factor: int, width=None) -> np.ndarray:
+    """csrc/fir_decimate.cu in numpy, block by block, from its launch plan:
+    the taps staged reversed by phase, each row element copied to the word
+    the kernel computes (its stepping of (m, k) included), each thread's
+    window read through the swizzle, and every word it reads written first
+    (shared memory starts as NaN). Sums in float64: this checks the layout
+    and the indices, not the rounding. Also checks the banks the kernel's
+    design claims: its window loads are conflict-free, and so are the
+    staging stores of factors 2, 4 and 8."""
+    plan = launch_plan(len(taps), factor, width)
+    w_, n_taps, pitch, group = plan.width, plan.taps_per_phase, plan.pitch, plan.group
+    n_in, t_len = len(planes), len(taps)
+    n_out = (n_in - t_len) // factor + 1
+    cols = OUTPUTS_PER_BLOCK + n_taps - 1
+    lanes = 8 if w_ == 2 else 16  # elements of one 128-byte wavefront
+    phys = np.array([swizzle(m, w_) for m in range(cols)])
+    assert len(np.unique(phys)) == cols and phys.max() < pitch
+    tid = np.arange(THREADS)
+    for j in range(n_taps + OUTPUTS_PER_THREAD - 1):  # element 8 i + j of each lane
+        banks = (phys[OUTPUTS_PER_THREAD * tid + j] % lanes).reshape(-1, lanes)
+        assert all(len(set(b)) == lanes for b in banks)
+    tap_words = -(-(group * n_taps) // 4) * 4
+    assert plan.smem_bytes == 4 * tap_words + group // w_ * pitch * 8 * w_
+    y = np.full((n_out, 2), np.nan)
+    for n0 in range(0, n_out, OUTPUTS_PER_BLOCK):
+        n = n0 + tid[:, None] * OUTPUTS_PER_THREAD + np.arange(OUTPUTS_PER_THREAD)
+        keep = n < n_out
+        acc = np.zeros((2, THREADS, OUTPUTS_PER_THREAD))
+        for q0 in range(0, factor, group):
+            kw = min(group, factor - q0) // w_
+            smem = np.full(plan.smem_bytes // 4, np.nan)
+            e = np.arange(kw * n_taps * w_)
+            kp = e // w_
+            k = kp // n_taps
+            s = (kp - k * n_taps) * factor + q0 + w_ * k + (e - kp * w_)
+            smem[e] = np.where(s < t_len, taps[np.clip(t_len - 1 - s, 0, None)], 0.0)
+            # The kernel's stepping: thread t starts at divmod(t, kw) and adds
+            # divmod(THREADS, kw) with a carry.
+            dm, dk = divmod(THREADS, kw)
+            m, k = tid // kw, tid % kw
+            for e0 in range(0, cols * kw, THREADS):
+                live = e0 + tid < cols * kw
+                assert np.array_equal((m * kw + k)[live], (e0 + tid)[live])
+                elem = k[live] * pitch + phys[m[live]]  # in elements of 8 w_ bytes
+                if factor in (2, 4, 8) and live.all():
+                    assert all(len(set(b)) == lanes for b in (elem % lanes).reshape(-1, lanes))
+                for j in range(w_):
+                    idx = (n0 + m[live]) * factor + q0 + w_ * k[live] + j
+                    val = np.where((idx < n_in)[:, None], planes[np.minimum(idx, n_in - 1)], 0.0)
+                    smem[tap_words + elem * 2 * w_ + 2 * j] = val[:, 0]
+                    smem[tap_words + elem * 2 * w_ + 2 * j + 1] = val[:, 1]
+                m, k = m + dm, k + dk
+                m, k = np.where(k >= kw, m + 1, m), np.where(k >= kw, k - kw, k)
+            for r in range(kw):
+                h = smem[r * n_taps * w_ : (r + 1) * n_taps * w_].reshape(n_taps, w_)
+                row = smem[tap_words + r * pitch * 2 * w_ :][: pitch * 2 * w_].reshape(pitch, 2 * w_)
+                # Output o of thread i reads element 8 i + o + p at tap p.
+                mm = (OUTPUTS_PER_THREAD * tid[:, None, None]
+                      + np.arange(OUTPUTS_PER_THREAD)[None, :, None] + np.arange(n_taps))
+                window = row[phys[mm]]  # [THREADS, 8, P, 2 w_]
+                assert not np.isnan(window).any()
+                acc[0] += np.einsum("iopj,pj->io", window[..., 0::2], h)
+                acc[1] += np.einsum("iopj,pj->io", window[..., 1::2], h)
+        assert np.isnan(y[n[keep]]).all()  # every output is stored once
+        y[n[keep], 0] = acc[0][keep]
+        y[n[keep], 1] = acc[1][keep]
+    return y
+
+
+@pytest.mark.parametrize("n,factor,taps,width", [
+    (5_000, 3, "asymmetric", None),
+    (20_003, 8, "default", None),
+    (12_345, 4, "default", None),
+    (12_345, 4, "default", 2),  # two-phase rows at factor 4
+    (4_099, 8, "default", 1),  # the one-phase rows a view off 16-byte alignment gets
+    (9_001, 1, "short", None),
+    (3_000, 5, "default", None),
+    (1441 + 120 * 1100, 120, "default", None),  # 15 groups of 8 phases
+    (8383 + 66 * 1030, 66, "tpp127", None),  # 128 taps per phase: 11 groups of 6
+])
+def test_the_kernels_layout_computes_the_function(n, factor, taps, width):
+    """The kernel's plan and shared-memory layout, emulated in numpy, against
+    the plain version, over ragged last blocks and groups of phases."""
+    h = {"asymmetric": np.linspace(0.1, 1.0, 13),
+         "default": tdec.decimation_filter(factor),
+         "short": np.array([0.5, -0.25, 1.0, 0.125, 0.3]),
+         "tpp127": tdec.decimation_filter(factor, taps_per_phase=127)}[taps].astype(np.float32)
+    planes = to_planes(_noise(n, factor))
+    want = fir_decimate_reference(torch.from_numpy(planes), torch.from_numpy(h), factor).numpy()
+    got = _emulate_kernel(planes.astype(np.float64), h.astype(np.float64), factor, width)
+    assert got.shape == want.shape
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * max(1.0, scale))
+
+
+def test_launch_plan_takes_every_filter_the_tpu_kernel_takes():
+    """Factors 1-160 against 1-128 taps per phase (the shortest and longest
+    filter of each): every plan fits the shared memory of a Hopper block and
+    keeps the kernel's layout rules; 129 taps per phase raise, as in the TPU
+    kernel (gypsum_tpu/ops/pallas_kernels.py:160)."""
+    for factor in range(1, 161):
+        for tpp in range(1, 129):
+            for t_len in {(tpp - 1) * factor + 1, tpp * factor}:
+                for width in {1, 2 if factor % 2 == 0 else 1}:
+                    plan = launch_plan(t_len, factor, width)
+                    cols = OUTPUTS_PER_BLOCK + tpp - 1
+                    assert plan.taps_per_phase == tpp and plan.width == width
+                    assert plan.smem_bytes <= MAX_SMEM_BYTES
+                    assert plan.smem_bytes == (4 * -(-(plan.group * tpp) // 4) * 4
+                                               + plan.group // width * plan.pitch * 8 * width)
+                    assert width <= plan.group <= factor and plan.group % width == 0
+                    # Every swizzled element of a row lies within its pitch.
+                    assert plan.pitch >= -(-cols // 8) * 8
+        with pytest.raises(ValueError, match="taps per phase"):
+            launch_plan(128 * factor + 1, factor)
+    # The plain version holds the kernel's limit too.
+    with pytest.raises(ValueError, match="taps per phase"):
+        fir_decimate(torch.zeros((2_000, 2)), torch.ones(129 * 3), 3)
+    assert fir_decimate(torch.zeros((2_000, 2)), torch.ones(128 * 3), 3).shape == (
+        (2_000 - 384) // 3 + 1, 2)
 
 
 @pytest.mark.parametrize("fs_in,prn,doppler,delay,seed", [
