@@ -4,7 +4,9 @@
 
 Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
 
-1. device: the card's name and power limit (``nvidia-smi``);
+1. device: the card's name and power limit (``nvidia-smi``); the replays'
+   scenes start synthesizing in worker processes (``Scenes``), which takes
+   the host minutes and overlaps steps 2-4;
 2. build: the five hand-written kernels from ``gypsum_tpu_torch/csrc`` with
    ``nvcc`` (one process each, in parallel), and a kernel that does nothing
    (``csrc/empty.cu``, the yardstick of a launch);
@@ -32,6 +34,14 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    held equal to the bit, its bound counting the 2K+1 lags the loop filter
    reads (not all NLE of the window).
 
+   Then K1, K2, K4 and K5 again at the GLONASS inputs: K1 on a real
+   phase-1 pass over 1000 ms of the GLONASS scene at NLE 43 (L1OF) and 49
+   (L2OF), 12 channels at FDMA offsets with odd and even k, identical to
+   the bit; K2 on the real [406, 4092] FDMA grid (14 channels x 29
+   Dopplers), with the engine's coarse peak by both routes; K4 at L = 4092
+   with wipe frequencies of k x 562.5 kHz (437.5 kHz) + Doppler, up to
+   3.94 MHz; K5 at factor 2 (8.184 -> 4.092 Msps) with its default filter.
+
    Every kernel, its plain version and its library call are timed two ways
    (``two_way``), in turns within this one run. The **issue time** is what
    a caller in a Python loop pays per call: CUDA events around a loop of
@@ -55,15 +65,30 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    ``Receiver(DecimatingSampleSource(...))`` to a fix, K5's launches counted;
 6. one more replay under torch.profiler: the device's busy share and the
    kernels that take it;
-7. a ``{"kernels": [...]}`` line with each kernel's launches, error and
-   both times beside its bound;
-8. last line: ``{"ok": true, "device": {...}}``.
+7. the GLONASS bands end to end: the 5-channel, 13 s GLONASS-only scene of
+   tests/test_glonass_receiver.py through ``Receiver(band="glonass")``
+   (default config, K1 each block; K2 peak reduce, held to the first run's
+   acquisitions; the per-ms scan tracker through K4, held to its signs)
+   with that test's bars (a fix by 11 s, every fix within 15 m, the last
+   within 5 m); the same scene at 8.184 Msps through the CLI's
+   ``--glonass-file --glonass-rate 8184000 --until-fix`` (K5 each block);
+   GPS + GLONASS through ``--file --glonass-file`` (4 + 3 satellites
+   within 5 m, the inter-system bias within 250 ns of the injected
+   -800 ns); GLONASS L1OF + L2OF of an iono-loaded scene through
+   ``DualBandReceiver`` (the measured ionosphere on >= 4 satellites, the
+   fix within 5 m); then one GLONASS replay under torch.profiler. The CLI
+   runs in this process (its ``main``), so the launch counts see it;
+8. a ``{"kernels": [...]}`` line with each kernel's launches, error and
+   both times beside its bound, and an entry per kernel at its GLONASS
+   inputs (launches from the GLONASS replays);
+9. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 It exits with an error at once when no CUDA device is present.
 
 ``python3 chip_smoke.py --kernels-only`` stops after step 3, and
-``--kernels-only=K2,K4`` checks and times only the kernels it names: a
+``--kernels-only=K2,K4`` checks and times only the kernels it names (K1G,
+K2G, K4G and K5G name the GLONASS checks): a
 short run for work on a kernel (no replay, so no launch counts and no result
 line). The checks call the wrappers with their oldest signatures (K4's
 optional ``n_split`` is probed), so a copy of this script and of
@@ -242,6 +267,58 @@ def checks_bank(sats, dev, config, off_air: bool = True):
     return bank, bank._device_replicas(prn_idx)
 
 
+def hold_fixup(what: str, init, corr_r, corr_i, params) -> float:
+    """K1 against its plain version on one block's correlations: every
+    output and carry row identical to the bit. Returns the max |err| (0)."""
+    from gypsum_tpu_torch.ops import fixup as fx
+
+    fin_k, outs_k = fx.fixup_cuda(init, corr_r, corr_i, params)
+    fin_p, outs_p = fx.fixup_reference(init, corr_r, corr_i, params)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(outs_k).all() and torch.isfinite(outs_p).all()):
+        raise AssertionError(f"K1 {what}: non-finite outputs")
+    for row in (fx.O_LOCKED, fx.O_LOST):
+        if not torch.equal(outs_k[:, row], outs_p[:, row]):
+            raise AssertionError(f"K1 {what}: output row {row} (locked/lost) differs")
+    if not torch.equal(fin_k[fx.STEP], fin_p[fx.STEP]) or not torch.equal(fin_k[fx.LOST], fin_p[fx.LOST]):
+        raise AssertionError(f"K1 {what}: step count or lost flag differs")
+    # Tolerance: none. The two sides run the same float32 operations in
+    # the same order (the kernel's branch-free divisions and floor-mods
+    # keep a result only where they prove it exact, and redo the chunk
+    # otherwise: tests/test_torch_fixup.py), and the card's sincosf and
+    # expf against PyTorch's cos, sin and exp: every output and carry row
+    # must be identical to the bit.
+    worst = 0.0
+    for name, a, b in (("outs", outs_k, outs_p), ("fin", fin_k, fin_p)):
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        if not torch.equal(a, b):
+            rows_err = diff.amax(dim=(0, 2) if name == "outs" else 1)
+            raise AssertionError(f"K1 {what} {name}: not identical to the bit, per-row max "
+                                 f"error {rows_err.tolist()}")
+    locked = int(outs_k[-1, fx.O_LOCKED].sum())
+    log(f"K1 {what}: kernel == plain, identical to the bit (max |err| {worst:.3g}); "
+        f"{locked}/{outs_k.shape[2]} channels locked at block end")
+    return worst
+
+
+def fixup_bound(corr_r, params) -> tuple[float, str]:
+    """K1's bound: per ms and channel only the 2K+1 lags around the prompt
+    of corr_r and corr_i (not all NLE), the outputs, and the carry in and
+    out; ~110 operations of discriminators, EMAs and NCO updates besides
+    the 2K+1 powers (3 ops) and the argmax compares."""
+    from gypsum_tpu_torch.ops import fixup as fx
+
+    (b_count, s_count, nle), n_lags = corr_r.shape, 2 * params.k_half + 1
+    n_bytes = 4 * (2 * b_count * s_count * n_lags + b_count * fx.N_OUT * s_count
+                   + 2 * fx.N_CARRY * s_count)
+    n_ops = b_count * s_count * (4 * n_lags + 110)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    log(f"K1 bound at [{b_count}, {s_count}, {nle}], {n_lags} lags read per ms and channel: "
+        f"{bound_ms:.6f} ms ({bound_by}, {n_bytes} bytes)")
+    return bound_ms, bound_by
+
+
 def check_fixup(dev, sats, samples) -> dict:
     from gypsum_tpu_torch.core.config import TrackingConfig
     from gypsum_tpu_torch.ops import fixup as fx
@@ -258,32 +335,7 @@ def check_fixup(dev, sats, samples) -> dict:
         if corr_r.shape != (b_ms, n_ch, 35 - 2 * (4 - k_half)):
             raise AssertionError(f"unexpected phase-1 shape {tuple(corr_r.shape)}")
         meas = f"{meas} K={k_half}"
-        fin_k, outs_k = fx.fixup_cuda(init, corr_r, corr_i, params)
-        fin_p, outs_p = fx.fixup_reference(init, corr_r, corr_i, params)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(outs_k).all() and torch.isfinite(outs_p).all()):
-            raise AssertionError(f"K1 {meas}: non-finite outputs")
-        for row in (fx.O_LOCKED, fx.O_LOST):
-            if not torch.equal(outs_k[:, row], outs_p[:, row]):
-                raise AssertionError(f"K1 {meas}: output row {row} (locked/lost) differs")
-        if not torch.equal(fin_k[fx.STEP], fin_p[fx.STEP]) or not torch.equal(fin_k[fx.LOST], fin_p[fx.LOST]):
-            raise AssertionError(f"K1 {meas}: step count or lost flag differs")
-        # Tolerance: none. The two sides run the same float32 operations in
-        # the same order (the kernel's branch-free divisions and floor-mods
-        # keep a result only where they prove it exact, and redo the chunk
-        # otherwise: tests/test_torch_fixup.py), and the card's sincosf and
-        # expf against PyTorch's cos, sin and exp: every output and carry row
-        # must be identical to the bit.
-        for name, a, b in (("outs", outs_k, outs_p), ("fin", fin_k, fin_p)):
-            diff = (a - b).abs()
-            worst = max(worst, float(diff.max()))
-            if not torch.equal(a, b):
-                rows_err = diff.amax(dim=(0, 2) if name == "outs" else 1)
-                raise AssertionError(f"K1 {meas} {name}: not identical to the bit, per-row max "
-                                     f"error {rows_err.tolist()}")
-        locked = int(outs_k[-1, fx.O_LOCKED].sum())
-        log(f"K1 {meas}: kernel == plain, identical to the bit (max |err| {worst:.3g}); "
-            f"{locked}/{n_ch} channels locked at block end")
+        worst = max(worst, hold_fixup(meas, init, corr_r, corr_i, params))
         if meas == "triangle K=4":
             # The plain version (1000 Python steps, some 128 000 launches)
             # has just run: one call, no warm-up of its own.
@@ -291,18 +343,7 @@ def check_fixup(dev, sats, samples) -> dict:
                 "kernel": (lambda: fx.fixup_cuda(init, corr_r, corr_i, params), 20, 2),
                 "plain": (lambda: fx.fixup_reference(init, corr_r, corr_i, params), 1, 0),
             })
-            (b_count, s_count, nle), n_lags = corr_r.shape, 2 * params.k_half + 1
-    # Bytes the function needs: per ms and channel only the 2K+1 lags around
-    # the prompt of corr_r and corr_i (not all NLE), the outputs, and the
-    # carry in and out.
-    n_bytes = 4 * (2 * b_count * s_count * n_lags + b_count * fx.N_OUT * s_count
-                   + 2 * fx.N_CARRY * s_count)
-    # Per ms and channel: 2K+1 powers (3 ops), the argmax compares, ~110
-    # operations of discriminators, EMAs and NCO updates.
-    n_ops = b_count * s_count * (4 * n_lags + 110)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    log(f"K1 bound at [{b_count}, {s_count}, {nle}], {n_lags} lags read per ms and channel: "
-        f"{bound_ms:.6f} ms ({bound_by}, {n_bytes} bytes)")
+            bound_ms, bound_by = fixup_bound(corr_r, params)
     return {
         "name": "K1 fixup",
         "route": "cuda",
@@ -415,9 +456,65 @@ def conflict_model_ms(n_out: int, t_len: int, factor: int) -> tuple[float, float
     return tuple(wavefronts / (132 * clock) * 1e3 for clock in (1.755e9, 1.98e9))
 
 
-def check_fir_decimate(dev) -> dict:
+def hold_fir_decimate(x, taps, factor: int) -> float:
+    """K5 against its plain version on ``x`` [N, 2]; returns max |err|."""
+    from gypsum_tpu_torch.ops import fir_decimate as k5
+
+    n, t_len = x.shape[0], len(taps)
+    y_k = k5.fir_decimate_cuda(x, taps, factor)
+    y_p = k5.fir_decimate_reference(x, taps, factor)
+    torch.cuda.synchronize()
+    if y_k.shape != y_p.shape or y_k.shape[0] != (n - t_len) // factor + 1:
+        raise AssertionError(f"K5 shape {tuple(y_k.shape)} vs plain {tuple(y_p.shape)} at N={n}")
+    err = float((y_k - y_p).abs().max())
+    # Tolerance: up to 97 taps, rtol 1e-4 and atol 1e-5 of the input
+    # scale (1.0), the bar of the JAX package's decimator tests: float32
+    # sums in another order than the convolution's. For longer filters
+    # each of the two sums lies within T 2^-24 sum|taps| max|x| of the
+    # exact one, so they lie within twice that of each other.
+    if t_len <= 97:
+        ok = torch.allclose(y_k, y_p, rtol=1e-4, atol=1e-5)
+        bar = "rtol 1e-4, atol 1e-5"
+    else:
+        tol = 2 * t_len * 2.0**-24 * float(taps.abs().sum()) * float(x.abs().max())
+        ok = err <= tol
+        bar = f"atol {tol:.3g} = 2 T 2^-24 sum|taps| max|x|"
+    if not ok:
+        raise AssertionError(f"K5 differs at N={n}, factor {factor}, {t_len} taps: "
+                             f"max |err| {err:.3g} ({bar})")
+    return err
+
+
+def time_fir_decimate(x, taps, factor: int) -> dict:
+    """K5's timing keys at ``x`` [N, 2], beside its plain version and
+    ``F.conv1d``, with its bound."""
     import torch.nn.functional as F
 
+    from gypsum_tpu_torch.ops import fir_decimate as k5
+
+    n, t_len = x.shape[0], len(taps)
+    n_out = (n - t_len) // factor + 1
+    v = x.T[:, None, :].contiguous()
+    w = taps.flip(0)[None, None, :]
+    bound_ms, bound_by = bound(4 * (2 * n + 2 * n_out + t_len), 2 * t_len * 2 * n_out)
+    lo, hi = conflict_model_ms(n_out, t_len, factor)
+    log(f"K5 fir_decimate [{n}, 2] / {factor}, {t_len} taps: bound {bound_ms:.4f} ms "
+        f"({bound_by}); the one-thread-per-output design under the shared-memory "
+        f"wavefront model: {lo:.4f}-{hi:.4f} ms at 1.98-1.755 GHz")
+    # The library call: one float32 strided convolution (TF32 is off,
+    # core/device.py) on planes already laid out [2, 1, N], with the taps
+    # reversed once, outside the timing.
+    timed = dict(**timing_keys(two_way({
+        "plain": (lambda: k5.fir_decimate_reference(x, taps, factor), 20, 2),
+        "kernel": (lambda: k5.fir_decimate_cuda(x, taps, factor), 20, 2),
+        "library": (lambda: F.conv1d(v, w, stride=factor), 20, 2),
+    })), bound_ms=bound_ms, bound_by=bound_by)
+    log(f"K5 at factor {factor}: device {timed['ms']:.5f} ms, "
+        f"{100 * bound_ms / timed['ms']:.1f} % of its bound")
+    return timed
+
+
+def check_fir_decimate(dev) -> dict:
     from gypsum_tpu_torch.ops import fir_decimate as k5
     from gypsum_tpu_torch.ops.decimate import decimation_filter
 
@@ -446,50 +543,11 @@ def check_fir_decimate(dev) -> dict:
                   (2_000_003, 66, decimation_filter(66, taps_per_phase=127), 0)]
     for n, factor, taps, skip in cases:
         taps = torch.from_numpy(decimation_filter(factor) if taps is None else taps).to(dev)
-        t_len = len(taps)
         x = torch.randn((n + skip, 2), device=dev, generator=g)[skip:]
-        y_k = k5.fir_decimate_cuda(x, taps, factor)
-        y_p = k5.fir_decimate_reference(x, taps, factor)
-        torch.cuda.synchronize()
-        if y_k.shape != y_p.shape or y_k.shape[0] != (n - t_len) // factor + 1:
-            raise AssertionError(f"K5 shape {tuple(y_k.shape)} vs plain {tuple(y_p.shape)} at N={n}")
-        err = float((y_k - y_p).abs().max())
-        # Tolerance: up to 97 taps, rtol 1e-4 and atol 1e-5 of the input
-        # scale (1.0), the bar of the JAX package's decimator tests: float32
-        # sums in another order than the convolution's. For longer filters
-        # each of the two sums lies within T 2^-24 sum|taps| max|x| of the
-        # exact one, so they lie within twice that of each other.
-        if t_len <= 97:
-            ok = torch.allclose(y_k, y_p, rtol=1e-4, atol=1e-5)
-            bar = "rtol 1e-4, atol 1e-5"
-        else:
-            tol = 2 * t_len * 2.0**-24 * float(taps.abs().sum()) * float(x.abs().max())
-            ok = err <= tol
-            bar = f"atol {tol:.3g} = 2 T 2^-24 sum|taps| max|x|"
-        if not ok:
-            raise AssertionError(f"K5 differs at N={n}, factor {factor}, {t_len} taps: "
-                                 f"max |err| {err:.3g} ({bar})")
-        worst = max(worst, err)
+        worst = max(worst, hold_fir_decimate(x, taps, factor))
         if n > 8_000_000:
-            v = x.T[:, None, :].contiguous()
-            w = taps.flip(0)[None, None, :]
-            n_out = y_k.shape[0]
-            bound_ms, bound_by = bound(4 * (2 * n + 2 * n_out + t_len), 2 * t_len * 2 * n_out)
-            lo, hi = conflict_model_ms(n_out, t_len, factor)
-            log(f"K5 fir_decimate [{n}, 2] / {factor}, {t_len} taps: bound {bound_ms:.4f} ms "
-                f"({bound_by}); the one-thread-per-output design under the shared-memory "
-                f"wavefront model: {lo:.4f}-{hi:.4f} ms at 1.98-1.755 GHz")
-            # The library call: one float32 strided convolution (TF32 is
-            # off, core/device.py) on planes already laid out [2, 1, N], with
-            # the taps reversed once, outside the timing.
-            timed[factor] = dict(**timing_keys(two_way({
-                "plain": (lambda: k5.fir_decimate_reference(x, taps, factor), 20, 2),
-                "kernel": (lambda: k5.fir_decimate_cuda(x, taps, factor), 20, 2),
-                "library": (lambda: F.conv1d(v, w, stride=factor), 20, 2),
-            })), bound_ms=bound_ms, bound_by=bound_by)
-            log(f"K5 at factor {factor}: device {timed[factor]['ms']:.5f} ms, "
-                f"{100 * bound_ms / timed[factor]['ms']:.1f} % of its bound")
-        del x, y_k, y_p
+            timed[factor] = time_fir_decimate(x, taps, factor)
+        del x
     log(f"K5 fir_decimate: kernel == plain on {len(cases)} cases (max |err| {worst:.3g})")
     # The main path's block (factor 4) under the plain keys; the 16.368 and
     # 10.23 Msps blocks under the same keys with _f8 and _f5.
@@ -738,6 +796,246 @@ def check_scan_variants(dev, sats, samples) -> None:
         f"{worst_cp:.3g}); wall " + ", ".join(f"{k} {v[1]:.2f} s" for k, v in runs.items()))
 
 
+# ------------------------------------------------------ GLONASS kernel checks
+
+
+FS_GLO, L_GLO = 4.092e6, 4092  # the GLONASS processing rate: 4092 samples per ms
+GLO_START_SOW = 21618.0  # a GLONASS frame boundary at t = 0 (tests/test_glonass_receiver.py)
+GLO_OFFSET_S = 8e-7  # the scenes' GPS-GLONASS time offset, which the receiver solves
+GLO_KS = [-2, -1, 0, 1, 2]
+
+
+def glonass_band(band: str) -> tuple[float, float]:
+    """(base Hz, channel spacing Hz) of the L1OF ("l1") or L2OF ("l2") band."""
+    from gypsum_tpu_torch.core import constants as c
+
+    if band == "l1":
+        return c.GLONASS_L1_BASE_HZ, c.GLONASS_L1_CHANNEL_SPACING_HZ
+    return c.GLONASS_L2_BASE_HZ, c.GLONASS_L2_CHANNEL_SPACING_HZ
+
+
+def glonass_block(band: str, dev):
+    """The GLONASS kernel checks' 1000 ms block: the first second of the
+    5-channel (k = -2..2) GLONASS-only scene in ``band`` at 4.092 Msps.
+    Returns (satellites, truth, [B, L] complex on dev)."""
+    from gypsum_tpu_torch.signal.constellation import synthesize_constellation
+    from gypsum_tpu_torch.signal.scenarios import demo_glonass_constellation, demo_receiver_ecef
+
+    sats = demo_glonass_constellation(GLO_KS)
+    iq, truth = synthesize_constellation(
+        sats, demo_receiver_ecef(), GLO_START_SOW, 1.0, FS_GLO, noise_sigma=0.25,
+        glonass_time_offset_s=GLO_OFFSET_S, glonass_band=band,
+    )
+    return sats, truth, torch.from_numpy(iq.reshape(B_MS, L_GLO)).to(dev)
+
+
+def glonass_bank(band: str, sats, truth, dev, config=None):
+    """A 12-channel GLONASS bank in ``band``, set up as the Receiver sets
+    up its band (aiding carrier, 511 chips, offset-relative Doppler, each
+    channel at its sub-band offset): the 5 on-air channels 3 Hz and half a
+    sample off the truth, and the 7 FDMA ids k = -7..-3, 3, 4 on noise, so
+    that both odd and even k run. Returns (bank, replica rows on dev)."""
+    import dataclasses
+
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.signal.prn import GLONASS_PRN_IDS, glonass_frequency_number
+    from gypsum_tpu_torch.track.loop import TrackerBank
+
+    base_hz, spacing_hz = glonass_band(band)
+    cfg = dataclasses.replace(config or TrackingConfig(), aiding_carrier_hz=base_hz,
+                              chips_per_code=511)
+    bank = TrackerBank(FS_GLO, L_GLO, cfg, n_channels=N_CH, prns=GLONASS_PRN_IDS, device=dev)
+    on_air = [s.prn for s in sats]
+    for prn in on_air:
+        off = glonass_frequency_number(prn) * spacing_hz
+        bank.assign(prn, truth.doppler_hz[prn] - off + 3.0, truth.code_phase_samples[prn] + 0.5,
+                    0.0, carrier_offset_hz=off)
+    for prn in [p for p in GLONASS_PRN_IDS if p not in on_air][: N_CH - len(on_air)]:
+        bank.assign(prn, 300.0, 1000.0, 0.0,
+                    carrier_offset_hz=glonass_frequency_number(prn) * spacing_hz)
+    prn_idx = np.array([bank._prn_row[p] for p in bank.slot_prn])
+    return bank, bank._device_replicas(prn_idx)
+
+
+def check_fixup_glonass(dev, blocks) -> dict:
+    """K1 on a real phase-1 pass over each band's block: NLE 43 (L1OF) and
+    49 (L2OF), 12 channels at FDMA offsets with odd and even k (for odd k
+    the offset's advance per ms is +/-0.5 cycle up to float32 rounding, so
+    the kernel's rintf and PyTorch's round must break ties alike)."""
+    from gypsum_tpu_torch.ops import fixup as fx
+
+    worst = 0.0
+    for band, nle in (("l1", 43), ("l2", 49)):
+        sats, truth, samples = blocks[band]
+        bank, replicas = glonass_bank(band, sats, truth, dev)
+        _, init, corr_r, corr_i = bank._fn.phase1(bank.state, samples, replicas)
+        params = bank._fn.fixup_params
+        if corr_r.shape != (B_MS, N_CH, nle):
+            raise AssertionError(f"unexpected GLONASS phase-1 shape {tuple(corr_r.shape)}")
+        ks = torch.round(init[fx.OFF] / glonass_band(band)[1]).to(torch.int64)
+        if not (bool((ks % 2 == 1).any()) and bool((ks[ks != 0] % 2 == 0).any())):
+            raise AssertionError(f"GLONASS {band}: offsets {ks.tolist()} lack odd or even k")
+        frac = fx.offset_cycle_fraction(init[fx.OFF], params.t_ms)
+        log(f"K1 GLONASS {band.upper()}OF: k {ks.tolist()}, offset advance per ms mod 1 cycle "
+            f"{[round(v, 6) for v in frac.tolist()]}")
+        what = f"GLONASS {band.upper()}OF NLE {nle}"
+        worst = max(worst, hold_fixup(what, init, corr_r, corr_i, params))
+        if band == "l1":
+            times = two_way({
+                "kernel": (lambda: fx.fixup_cuda(init, corr_r, corr_i, params), 20, 2),
+                "plain": (lambda: fx.fixup_reference(init, corr_r, corr_i, params), 1, 0),
+            })
+            bound_ms, bound_by = fixup_bound(corr_r, params)
+    return {
+        "name": "K1 fixup, GLONASS L1OF [1000, 12, 43] (L2OF NLE 49 held too)",
+        "route": "cuda",
+        "source": "gypsum_tpu_torch/csrc/fixup.cu",
+        "replaces": "gypsum_tpu/ops/pallas_fixup.py:58",
+        "max_abs_err": worst,
+        **timing_keys(times),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
+def check_peak_reduce_glonass(dev, samples) -> dict:
+    """K2 on the real FDMA coarse grid: 14 channels x 29 Dopplers flattened
+    into [406, 4092] rows; then the engine's coarse peak, whose Doppler bin
+    is picked over each channel's 29 rows with the lowest index on ties, by
+    both routes."""
+    from gypsum_tpu_torch.acquire.engine import AcquisitionEngine, coarse_peak
+    from gypsum_tpu_torch.ops.correlate import noncoherent_acquisition_sweep
+    from gypsum_tpu_torch.ops.peak_reduce import peak_reduce_cuda, peak_reduce_reference
+    from gypsum_tpu_torch.signal.prn import GLONASS_PRN_IDS, glonass_frequency_number
+
+    spacing = glonass_band("l1")[1]
+    eng = AcquisitionEngine(
+        FS_GLO, L_GLO, prns=GLONASS_PRN_IDS, device=dev,
+        center_offsets_hz=tuple(glonass_frequency_number(p) * spacing for p in GLONASS_PRN_IDS),
+    )
+    noncoh = noncoherent_acquisition_sweep(
+        samples[:10], eng.sweep_dopplers, eng.prn_fft_conj, FS_GLO)
+    grid = noncoh.reshape(-1, L_GLO).contiguous()
+    if grid.shape != (406, 4092):
+        raise AssertionError(f"unexpected FDMA grid shape {tuple(grid.shape)}")
+    mk, ak, sk = peak_reduce_cuda(grid)
+    mp, ap, sp = peak_reduce_reference(grid)
+    torch.cuda.synchronize()
+    if not (torch.equal(mk, mp) and torch.equal(ak, ap)):
+        raise AssertionError("K2 max/argmax differ on the FDMA grid")
+    # Sum: rtol 1e-5, as on the GPS grid (float32 sums in another order).
+    if not torch.allclose(sk, sp, rtol=1e-5, atol=0.0):
+        raise AssertionError("K2 sum differs on the FDMA grid")
+    worst = float((sk - sp).abs().max())
+    grid3 = grid.view(len(GLONASS_PRN_IDS), -1, L_GLO)
+    d_k, cp_k, st_k = coarse_peak(grid3, True)
+    d_p, cp_p, st_p = coarse_peak(grid3, False)
+    if not (torch.equal(d_k, d_p) and torch.equal(cp_k, cp_p)) or not torch.allclose(
+            st_k, st_p, rtol=1e-5):
+        raise AssertionError(f"coarse peak on the FDMA grid: K2 route {d_k.tolist()} "
+                             f"{cp_k.tolist()}, plain {d_p.tolist()} {cp_p.tolist()}")
+    rows, n = grid.shape
+    bound_ms, bound_by = bound(4 * rows * n + 12 * rows, 2 * rows * n)
+    log(f"K2 peak reduce on the GLONASS FDMA grid [406, 4092]: argmax/max exact, sum max |err| "
+        f"{worst:.3g}; coarse peak by K2 == plain on 14 channels (Doppler bins "
+        f"{d_k.tolist()}); bound {bound_ms:.5f} ms ({bound_by})")
+    times = two_way({
+        "plain": (lambda: peak_reduce_reference(grid), 200, 2),
+        "kernel": (lambda: peak_reduce_cuda(grid), 200, 2),
+        "library": (lambda: (torch.max(grid, dim=1), grid.sum(dim=1)), 200, 2),
+        "empty": (lambda: EMPTY_KERNEL.launch(51, 256), 200, 2),
+    })
+    return {
+        "name": "K2 peak_reduce, GLONASS FDMA grid [406, 4092]",
+        "route": "cuda",
+        "source": "gypsum_tpu_torch/csrc/peak_reduce.cu",
+        "replaces": "gypsum_tpu/ops/pallas_kernels.py:194",
+        "max_abs_err": worst,
+        **timing_keys(times),
+        "empty_ms": times["empty"][0],
+        "empty_issue_ms": times["empty"][1],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
+def check_wipeoff_lag_glonass(dev, blocks) -> dict:
+    """K4 at L = 4092 with the banks' wipe frequencies: each channel's
+    offset-relative Doppler plus its k x 562.5 kHz (L2OF: 437.5 kHz)
+    sub-band, up to 3.94 MHz, on three chunks of each band's block."""
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.ops.wipeoff_lag import wipeoff_lag_cuda, wipeoff_lag_reference
+
+    k_half = TrackingConfig().lag_window_half_width
+    n_lags = 2 * k_half + 1
+    worst, scale, f_max = 0.0, 0.0, 0.0
+    for band in ("l1", "l2"):
+        sats, truth, samples = blocks[band]
+        bank, replicas = glonass_bank(band, sats, truth, dev)
+        st = bank.state
+        freq = st.doppler + st.carrier_offset
+        f_max = max(f_max, float(np.abs(freq).max()))
+        base = np.mod(L_GLO - np.floor(st.code_phase).astype(np.int64) - k_half, L_GLO)
+        for ms, theta in ((0, st.carrier_phase), (1, st.carrier_phase + 1.7), (999, st.carrier_phase)):
+            chunk_iq = torch.stack([samples[ms].real, samples[ms].imag]).contiguous()
+            params = torch.from_numpy(
+                np.stack([theta, freq, base.astype(np.float32)], axis=-1).astype(np.float32)
+            ).to(dev)
+            args = (chunk_iq, replicas, params, L_GLO, n_lags, 1.0 / FS_GLO)
+            err, scale = hold_wipeoff_lag(args, f"GLONASS {band} ms {ms}")
+            worst = max(worst, err)
+            if band == "l1" and ms == 0:
+                timed_args = args
+    args = timed_args
+    times = two_way({
+        "plain": (lambda: wipeoff_lag_reference(*args), 50, 2),
+        "kernel": (lambda: wipeoff_lag_cuda(*args), 200, 2),
+        "empty": (lambda: EMPTY_KERNEL.launch(96, 512), 200, 2),
+    })
+    n_bytes = 4 * (2 * L_GLO + N_CH * (L_GLO + 2 * k_half) + 3 * N_CH + 2 * N_CH * n_lags)
+    bound_ms, bound_by = bound(n_bytes, N_CH * L_GLO * (12 + 4 * n_lags))
+    log(f"K4 wipeoff_lag GLONASS [{N_CH}, {replicas.shape[1]}], {n_lags} lags, wipe frequencies "
+        f"up to {f_max / 1e6:.4f} MHz: kernel == plain on 3 chunks of each band's block (max "
+        f"|err| {worst:.3g} at scale {scale:.3g}; bar 1e-4 of scale), two runs equal to the "
+        f"bit; bound {bound_ms:.6f} ms ({bound_by})")
+    return {
+        "name": "K4 wipeoff_lag, GLONASS L1OF [12, 2, 9] from [2, 4092] at MHz",
+        "route": "cuda",
+        "source": "gypsum_tpu_torch/csrc/wipeoff_lag.cu",
+        "replaces": "gypsum_tpu/ops/pallas_kernels.py:281",
+        "max_abs_err": worst,
+        **timing_keys(times),
+        "empty_ms": times["empty"][0],
+        "empty_issue_ms": times["empty"][1],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
+def check_fir_decimate_glonass(dev) -> dict:
+    """K5 at factor 2 with its default filter, on one 1000 ms block of an
+    8.184 Msps GLONASS capture as the streaming source hands it over
+    (history + block + tail) on its way to 4.092 Msps."""
+    from gypsum_tpu_torch.ops.decimate import decimation_filter
+
+    taps = torch.from_numpy(decimation_filter(2)).to(dev)
+    t_len = len(taps)
+    n = 8_184_000 + -(-(t_len - 1) // 2) * 2 + t_len + 1
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((n, 2), device=dev, generator=g)
+    err = hold_fir_decimate(x, taps, 2)
+    log(f"K5 fir_decimate GLONASS 8.184 -> 4.092 Msps [{n}, 2] / 2, {t_len} taps: kernel == "
+        f"plain (max |err| {err:.3g}; rtol 1e-4, atol 1e-5)")
+    return {
+        "name": f"K5 fir_decimate, GLONASS factor 2 [{n}, 2]",
+        "route": "cuda",
+        "source": "gypsum_tpu_torch/csrc/fir_decimate.cu",
+        "replaces": "gypsum_tpu/ops/pallas_kernels.py:63",
+        "max_abs_err": err,
+        **time_fir_decimate(x, taps, 2),
+    }
+
+
 # ---------------------------------------------------------- phase 5: e2e
 
 
@@ -752,6 +1050,82 @@ def synthesize_scene(sample_rate: float = FS):
         sample_rate=sample_rate, noise_sigma=0.35, subframe_pattern="123", seed=0,
     )
     return rx, iq
+
+
+def synthesize_named(name: str) -> np.ndarray:
+    """The IQ of one of the replays' scenes (numpy on the host, no device):
+    the GPS scene at 2.046 and 8.184 Msps; the GLONASS-only scene of
+    tests/test_glonass_receiver.py (13 s; at 8.184 Msps cut to 11 s, its
+    first fix lands at 9 s); the GPS + GLONASS pair of that file's
+    dual-band test (24 s, k = -2, 0, 2); and the iono-loaded L1OF + L2OF
+    pair of tests/test_dualfreq.py (16 s)."""
+    from gypsum_tpu_torch.signal.constellation import synthesize_constellation
+    from gypsum_tpu_torch.signal.scenarios import (
+        demo_constellation,
+        demo_glonass_constellation,
+        demo_iono_page18,
+        demo_receiver_ecef,
+    )
+    from gypsum_tpu_torch.solve.iono import IonoUtcParams
+
+    if name in ("gps", "gps_8x"):
+        return synthesize_scene(FS if name == "gps" else FS_FAST)[1]
+    rx = demo_receiver_ecef()
+    glo = dict(noise_sigma=0.25, glonass_time_offset_s=GLO_OFFSET_S)
+    if name in ("glonass", "glonass_8x"):
+        rate, seconds = (FS_GLO, 13.0) if name == "glonass" else (FS_FAST, 11.0)
+        sats = demo_glonass_constellation(GLO_KS)
+        return synthesize_constellation(sats, rx, GLO_START_SOW, seconds, rate, **glo)[0]
+    if name == "dual_gps":
+        return synthesize_constellation(demo_constellation(SCENE_PRNS), rx, GLO_START_SOW,
+                                        24.0, FS, noise_sigma=0.3)[0]
+    if name == "dual_glonass":
+        return synthesize_constellation(demo_glonass_constellation([-2, 0, 2]), rx,
+                                        GLO_START_SOW, 24.0, FS_GLO, **glo)[0]
+    if name in ("iono_l1", "iono_l2"):
+        iono = IonoUtcParams.from_page(demo_iono_page18())
+        return synthesize_constellation(demo_glonass_constellation(GLO_KS), rx, GLO_START_SOW,
+                                        16.0, FS_GLO, noise_sigma=0.25, iono=iono,
+                                        glonass_band=name[-2:])[0]
+    raise ValueError(f"no scene {name!r}")
+
+
+def synthesize_to(name: str, path: str) -> float:
+    """Worker process: synthesize scene ``name`` into ``path`` (.npy);
+    returns the seconds it took."""
+    t0 = time.perf_counter()
+    np.save(path, synthesize_named(name))
+    return time.perf_counter() - t0
+
+
+class Scenes:
+    """The replays' scenes, synthesized in worker processes (spawned, no
+    CUDA) into ``directory`` while the kernels are built and checked; the
+    host's synthesis is most of this script's time when run in turn."""
+
+    def __init__(self, names: list[str], directory: str) -> None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.directory = Path(directory)
+        workers = max(1, min(len(names), (os.cpu_count() or 2) - 2))
+        self._pool = ProcessPoolExecutor(
+            max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+        self._futures = {n: self._pool.submit(synthesize_to, n, str(self.path(n))) for n in names}
+        log(f"scenes: synthesizing {', '.join(names)} in {workers} worker processes")
+
+    def path(self, name: str) -> Path:
+        return self.directory / f"{name}.npy"
+
+    def get(self, name: str) -> np.ndarray:
+        t0 = time.perf_counter()
+        seconds = self._futures[name].result()
+        log(f"scene {name}: synthesized in {seconds:.1f} s (host, worker process; waited "
+            f"{time.perf_counter() - t0:.1f} s for it)")
+        return np.load(self.path(name))
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 def run_cli(capture: Path, rx: np.ndarray, *extra: str) -> float:
@@ -780,13 +1154,36 @@ def run_cli(capture: Path, rx: np.ndarray, *extra: str) -> float:
     return err
 
 
+def timed_run(recv) -> float:
+    """Run ``recv`` (a Receiver or DualBandReceiver) to the end of its
+    stream; returns the wall seconds. ``recv.collect`` then summarizes the
+    host ms per block spent in ``TrackerBank.collect_block`` (waiting for
+    the block's outputs, then building its observations) of every band."""
+    bands = getattr(recv, "_bands", [recv])
+    collect_s = []
+    for band in bands:
+        def timed_collect(collect=band.bank.collect_block):
+            t = time.perf_counter()
+            out = collect()
+            collect_s.append(time.perf_counter() - t)
+            return out
+
+        band.bank.collect_block = timed_collect
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = 1e3 * np.asarray(collect_s)
+    recv.collect = (f"collect_block mean {ms.mean():.3f}, median {np.median(ms):.3f}, "
+                    f"max {ms.max():.3f} ms per block")
+    return wall
+
+
 def run_receiver(iq: np.ndarray, rx: np.ndarray, dev, peak_kernel: bool = False,
                  source=None, **tracking):
     """One in-process replay of ``iq`` at 2.046 Msps (or of ``source``), with
-    ``tracking`` fields set on the default TrackingConfig. ``recv.collect``
-    then summarizes the host ms per block spent in
-    ``TrackerBank.collect_block`` (waiting for the block's outputs, then
-    building its observations)."""
+    ``tracking`` fields set on the default TrackingConfig (``timed_run``)."""
     import dataclasses
 
     from gypsum_tpu_torch.core.config import AcquisitionConfig, ReceiverConfig
@@ -798,23 +1195,7 @@ def run_receiver(iq: np.ndarray, rx: np.ndarray, dev, peak_kernel: bool = False,
         cfg = cfg.replace(acquisition=AcquisitionConfig(use_pallas_peak_reduce=True))
     cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, **tracking))
     recv = Receiver(source if source is not None else ArraySampleSource(iq, FS), cfg, device=dev)
-    collect, collect_s = recv.bank.collect_block, []
-
-    def timed_collect():
-        t = time.perf_counter()
-        out = collect()
-        collect_s.append(time.perf_counter() - t)
-        return out
-
-    recv.bank.collect_block = timed_collect
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    recv.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ms = 1e3 * np.asarray(collect_s)
-    recv.collect = (f"collect_block mean {ms.mean():.3f}, median {np.median(ms):.3f}, "
-                    f"max {ms.max():.3f} ms per block")
+    wall = timed_run(recv)
     fixes = recv.world.position_fixes
     if not fixes:
         raise AssertionError("Receiver(device='cuda') made no fix on the 23 s scene")
@@ -849,14 +1230,14 @@ def signs_by_prn(recv) -> dict:
     return {p: np.concatenate(v) for p, v in out.items()}
 
 
-def check_same_tracking(name: str, recv, acq, ref_recv, ref_acq) -> str:
+def check_same_tracking(name: str, recv, acq, ref_recv, ref_acq, prns=SCENE_PRNS) -> str:
     """``recv`` against the default run: the same acquisitions and > 99.9 %
-    pseudosymbol sign agreement per PRN."""
+    pseudosymbol sign agreement per PRN of ``prns``."""
     if [a[:4] for a in acq] != [a[:4] for a in ref_acq]:
         raise AssertionError(f"{name}: acquisitions differ from the default run:\n{acq}\n{ref_acq}")
     got, want = signs_by_prn(recv), signs_by_prn(ref_recv)
     agreement = {}
-    for prn in SCENE_PRNS:
+    for prn in prns:
         if got[prn].shape != want[prn].shape:
             raise AssertionError(
                 f"{name}: PRN {prn} has {len(got[prn])} pseudosymbols, the default run {len(want[prn])}")
@@ -866,34 +1247,244 @@ def check_same_tracking(name: str, recv, acq, ref_recv, ref_acq) -> str:
     return ", ".join(f"PRN {p} {100 * a:.2f} % of {len(got[p])}" for p, a in agreement.items())
 
 
+# ------------------------------------------------------------ GLONASS e2e
+
+
+GLO_PRNS = [208 + k for k in GLO_KS]  # channel ids of k = -2..2
+FIX_LINE = re.compile(r"FIX lat=(-?[\d.]+) lon=(-?[\d.]+) alt=(-?\d+)m.*?"
+                      r"(?: isb=([+-][\d.]+)ns)? sats=\(([\d, ]*)\)")
+
+
+def run_glonass_receiver(iq: np.ndarray, dev, peak_kernel: bool = False, **tracking):
+    """The GLONASS-only scene through ``Receiver(band="glonass")``, with
+    ``tracking`` fields set on the default TrackingConfig, held to the bars
+    of tests/test_glonass_receiver.py:26-48: a fix by 11 s, every fix within
+    15 m on >= 4 GLONASS satellites, the last within 5 m and static within
+    0.5 m/s, >= 4 strings per channel. Returns (recv, acquisitions, fix
+    errors m, wall s)."""
+    import dataclasses
+
+    from gypsum_tpu_torch.core.config import AcquisitionConfig, ReceiverConfig
+    from gypsum_tpu_torch.io.sources import ArraySampleSource
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+    from gypsum_tpu_torch.signal.scenarios import demo_receiver_ecef
+
+    cfg = ReceiverConfig()
+    if peak_kernel:
+        cfg = cfg.replace(acquisition=AcquisitionConfig(use_pallas_peak_reduce=True))
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, **tracking))
+    recv = Receiver(ArraySampleSource(iq, FS_GLO), cfg, band="glonass", device=dev)
+    wall = timed_run(recv)
+    rx = demo_receiver_ecef()
+    fixes = recv.world.position_fixes
+    if not fixes or fixes[0].receiver_timestamp > 11.0:
+        raise AssertionError(f"GLONASS-only: first fix at "
+                             f"{fixes[0].receiver_timestamp if fixes else None} s (bar 11 s)")
+    errs = [float(np.linalg.norm(f.ecef - rx)) for f in fixes]
+    for f, err in zip(fixes, errs):
+        if err >= 15.0 or len(f.satellites_used) < 4 or not all(
+                201 <= p <= 214 for p in f.satellites_used):
+            raise AssertionError(f"GLONASS-only fix at {f.receiver_timestamp} s: {err:.2f} m, "
+                                 f"satellites {f.satellites_used}")
+    if errs[-1] >= 5.0 or np.linalg.norm(fixes[-1].velocity_ecef_mps) >= 0.5:
+        raise AssertionError(f"GLONASS-only last fix {errs[-1]:.2f} m, velocity "
+                             f"{fixes[-1].velocity_ecef_mps}")
+    n_strings = sum(len(r.glonass_strings) for r in recv.block_reports)
+    if n_strings < 4 * len(GLO_KS):
+        raise AssertionError(f"GLONASS-only: {n_strings} strings decoded")
+    acq = [(h.prn, h.code_phase_samples, h.doppler_hz, h.carrier_phase_rad, h.strength)
+           for r in recv.block_reports for h in r.newly_acquired]
+    if {a[0] for a in acq} < set(GLO_PRNS):
+        raise AssertionError(f"acquired {sorted(a[0] for a in acq)}, scene has {GLO_PRNS}")
+    recv.n_strings = n_strings
+    return recv, acq, errs, wall
+
+
+def run_cli_here(*argv: str) -> tuple[str, float]:
+    """``python -m gypsum_tpu_torch replay ...`` run in this process (the
+    CLI's own ``main``), so that the kernels' launch counts see it.
+    Returns (its standard output, wall s)."""
+    import contextlib
+    import io
+    import logging
+
+    from gypsum_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["replay", *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logging.getLogger().setLevel(logging.WARNING)  # the CLI turned on INFO for its run
+    if rc != 0:
+        raise AssertionError(f"CLI replay {' '.join(argv)} returned {rc}:\n{out.getvalue()[-3000:]}")
+    return out.getvalue(), wall
+
+
+def cli_fixes(text: str) -> list[tuple[np.ndarray, float | None, tuple[int, ...]]]:
+    """(ECEF, inter-system bias s or None, satellites) of each FIX line."""
+    from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
+
+    return [
+        (lla_to_ecef(float(lat), float(lon), float(alt)),
+         float(isb) * 1e-9 if isb else None,
+         tuple(int(p) for p in sats.split(",") if p.strip()))
+        for lat, lon, alt, isb, sats in FIX_LINE.findall(text)
+    ]
+
+
+def processed_blocks(text: str) -> int:
+    """1000 ms blocks the CLI reports as processed."""
+    m = re.search(r"processed ([\d.]+)s", text)
+    if m is None:
+        raise AssertionError(f"CLI printed no 'processed' line:\n{text[-2000:]}")
+    return round(float(m.group(1)))
+
+
+def run_glonass_replays(dev, scenes: "Scenes", g1: dict, g2: dict, g4: dict, g5: dict) -> None:
+    """The GLONASS bands end to end on the card, each kernel's launches
+    counted around each run (the counts set to 0 just before it and read
+    just after): the GLONASS-only scene through Receiver(band="glonass")
+    (K1), with the K2 peak reduce, and with the per-ms scan tracker through
+    K4; the same scene at 8.184 Msps through the CLI (K5); GPS + GLONASS
+    through the CLI; and GLONASS L1OF + L2OF through DualBandReceiver."""
+    from gypsum_tpu_torch.core.config import ReceiverConfig
+    from gypsum_tpu_torch.io.sources import ArraySampleSource
+    from gypsum_tpu_torch.runtime.receiver import DualBandReceiver, Receiver
+    from gypsum_tpu_torch.signal.scenarios import demo_receiver_ecef
+
+    rx = demo_receiver_ecef()
+    iq = scenes.get("glonass")
+    reset_launches()
+    recv, acq, errs, wall = run_glonass_receiver(iq, dev)
+    n = launches()
+    g1["launches"] = n["K1"]
+    blocks = round(recv.source.seconds_consumed)
+    if n["K1"] != blocks or n["K2"] != 0:
+        raise AssertionError(f"GLONASS-only replay of {blocks} blocks launched {n}")
+    log(f"e2e GLONASS-only Receiver(band='glonass', device='cuda'), default config: "
+        f"{len(errs)} fixes, first at {recv.world.position_fixes[0].receiver_timestamp:.1f} s, "
+        f"best {min(errs):.2f} m, last {errs[-1]:.2f} m; {recv.n_strings} strings; "
+        f"{wall:.2f} s wall for {recv.source.seconds_consumed:.0f} s of signal; launches {n}; "
+        f"{recv.collect}")
+    glonass_recv = recv
+
+    reset_launches()
+    recv_b, acq_b, errs_b, wall_b = run_glonass_receiver(iq, dev, peak_kernel=True)
+    n = launches()
+    g2["launches"] = n["K2"]
+    if n["K2"] == 0 or n["K1"] == 0:
+        raise AssertionError(f"the GLONASS peak-reduce run launched {n}")
+    if [a[:4] for a in acq] != [b[:4] for b in acq_b] or not np.allclose(
+            [a[4] for a in acq], [b[4] for b in acq_b], rtol=1e-5):
+        raise AssertionError(f"GLONASS acquisitions differ with K2:\n{acq}\n{acq_b}")
+    log(f"e2e GLONASS-only, use_pallas_peak_reduce=True: identical acquisitions "
+        f"({len(acq_b)} channels); {len(errs_b)} fixes, last {errs_b[-1]:.2f} m; "
+        f"{wall_b:.2f} s wall; launches {n}")
+
+    reset_launches()
+    recv_c, acq_c, errs_c, wall_c = run_glonass_receiver(
+        iq, dev, use_matmul_tracker=False, use_pallas_block_tracker=False,
+        use_pallas_correlator=True)
+    n = launches()
+    g4["launches"] = n["K4"]
+    if n["K4"] != 1000 * blocks or n["K1"] != 0 or n["K3"] != 0:
+        raise AssertionError(f"GLONASS K4 scan replay of {blocks} blocks launched {n}")
+    agree = check_same_tracking("GLONASS K4 scan", recv_c, acq_c, glonass_recv, acq, GLO_PRNS)
+    log(f"e2e GLONASS-only, scan tracker with use_pallas_correlator=True: {len(errs_c)} fixes, "
+        f"last {errs_c[-1]:.2f} m; acquisitions as the default run; sign agreement {agree}; "
+        f"{wall_c:.2f} s wall; launches {n}")
+    del recv_b, recv_c
+
+    iq_fast = scenes.get("glonass_8x")
+    reset_launches()
+    out, wall = run_cli_here("--glonass-file", str(scenes.path("glonass_8x")),
+                             "--glonass-rate", f"{FS_FAST:.0f}", "--until-fix")
+    n = launches()
+    g5["launches"] = n["K5"]
+    blocks = processed_blocks(out)
+    fixes = cli_fixes(out)
+    if n["K5"] < blocks or n["K1"] == 0 or not fixes:
+        raise AssertionError(f"GLONASS 8.184 Msps CLI replay: {blocks} blocks, {len(fixes)} "
+                             f"fixes, launches {n}:\n{out[-2000:]}")
+    errs = [float(np.linalg.norm(f[0] - rx)) for f in fixes]
+    if max(errs) >= 15.0:
+        raise AssertionError(f"GLONASS 8.184 Msps CLI fixes {errs} m from truth (bar 15 m)")
+    log(f"e2e CLI replay --glonass-file (8.184 Msps, {iq_fast.nbytes / 1e9:.2f} GB) "
+        f"--glonass-rate 8184000 --until-fix: FIX {errs[-1]:.2f} m from truth after {blocks} "
+        f"blocks; {wall:.2f} s wall; launches {n}")
+    del iq_fast
+
+    scenes.get("dual_gps"), scenes.get("dual_glonass")
+    reset_launches()
+    out, wall = run_cli_here("--file", str(scenes.path("dual_gps")),
+                             "--glonass-file", str(scenes.path("dual_glonass")))
+    n = launches()
+    blocks = processed_blocks(out)
+    fixes = cli_fixes(out)
+    if not fixes or n["K1"] != 2 * blocks:
+        raise AssertionError(f"GPS + GLONASS CLI replay: {len(fixes)} fixes, {blocks} blocks, "
+                             f"launches {n}:\n{out[-2000:]}")
+    ecef, isb, sats = fixes[-1]
+    err = float(np.linalg.norm(ecef - rx))
+    gps, glo = [p for p in sats if p <= 32], [p for p in sats if p >= 201]
+    if err >= 5.0 or len(gps) != 4 or len(glo) != 3 or isb is None or abs(isb + GLO_OFFSET_S) >= 250e-9:
+        raise AssertionError(f"GPS + GLONASS last fix: {err:.2f} m, satellites {sats}, isb {isb}")
+    log(f"e2e CLI replay --file --glonass-file (GPS + GLONASS, 24 s): {len(fixes)} fixes, last "
+        f"{err:.2f} m on {len(gps)} GPS + {len(glo)} GLONASS, isb {isb * 1e9:+.1f} ns (injected "
+        f"offset -{GLO_OFFSET_S * 1e9:.0f} ns, bar 250 ns); {wall:.2f} s wall; launches {n}")
+
+    l1, l2 = scenes.get("iono_l1"), scenes.get("iono_l2")
+    dual = DualBandReceiver(None, ArraySampleSource(l1, FS_GLO),
+                            glonass_l2_source=ArraySampleSource(l2, FS_GLO), device=dev)
+    reset_launches()
+    wall = timed_run(dual)
+    n = launches()
+    fixes = dual.world.position_fixes
+    blocks = round(dual.glonass.source.seconds_consumed)
+    if not fixes or n["K1"] != 2 * blocks:
+        raise AssertionError(f"L1OF + L2OF: {len(fixes)} fixes, {blocks} blocks, launches {n}")
+    last = fixes[-1]
+    err = float(np.linalg.norm(last.ecef - rx))
+    iono = last.iono_measured_m or {}
+    if err >= 5.0 or len(iono) < 4 or not all(2.0 < v < 40.0 for v in iono.values()):
+        raise AssertionError(f"L1OF + L2OF last fix: {err:.2f} m, measured iono {iono}")
+    log(f"e2e DualBandReceiver(L1OF + L2OF, --iono scene, 16 s, device='cuda'): {len(fixes)} "
+        f"fixes, last {err:.2f} m, measured iono {np.mean(list(iono.values())):.1f} m mean on "
+        f"{len(iono)} satellites; {wall:.2f} s wall; launches {n}; {dual.collect}")
+    track_ms, acq_ms = block_timings(glonass_recv, iq)
+    log(f"timing GLONASS: one 1000 ms tracking block (NLE 43, phase 1 + K1) {track_ms:.3f} ms; "
+        f"one 10 ms FDMA acquisition sweep [406, 4092] {acq_ms:.3f} ms")
+    profile_run(lambda: Receiver(ArraySampleSource(iq, FS_GLO), ReceiverConfig(), band="glonass",
+                                 device=dev))
+
+
 def block_timings(recv, iq: np.ndarray) -> tuple[float, float]:
-    """Device ms of one 1000 ms tracking block (phase 1 + K1 + glue) at the
+    """Issue ms of one 1000 ms tracking block (phase 1 + K1 + glue) at the
     receiver's channel binding, and of one 10 ms acquisition sweep."""
-    bank = recv.bank
-    block = torch.from_numpy(np.ascontiguousarray(iq[: 1000 * L].reshape(1000, L))).to(bank.device)
+    bank, length = recv.bank, recv.samples_per_prn
+    block = torch.from_numpy(np.ascontiguousarray(iq[: 1000 * length].reshape(1000, length))).to(bank.device)
     prn_idx = np.array([bank._prn_row[p] if p is not None else 0 for p in bank.slot_prn])
     replicas = bank._device_replicas(prn_idx)
     bank.sync_host_state()
     state = bank.state
     track_ms = issue_ms(lambda: bank._fn.packed(state, block, replicas), 5)
-    x10 = torch.from_numpy(np.ascontiguousarray(iq[: 10 * L].reshape(10, L))).to(bank.device)
+    x10 = torch.from_numpy(np.ascontiguousarray(iq[: 10 * length].reshape(10, length))).to(bank.device)
     acq_ms = issue_ms(lambda: recv.acquisition(x10), 5)
     return track_ms, acq_ms
 
 
-def profile_run(iq: np.ndarray, dev) -> None:
-    """One more replay of the scene under torch.profiler: the device's busy
-    share of the wall time and the kernels that take it (the profiler's own
-    overhead lengthens the wall time and it may lose records, ``device_ms``,
-    so the share is a lower bound)."""
+def profile_run(make_receiver) -> None:
+    """One more replay, of the receiver ``make_receiver()`` builds, under
+    torch.profiler: the device's busy share of the wall time and the kernels
+    that take it (the profiler's own overhead lengthens the wall time and it
+    may lose records, ``device_ms``, so the share is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gypsum_tpu_torch.core.config import ReceiverConfig
-    from gypsum_tpu_torch.io.sources import ArraySampleSource
-    from gypsum_tpu_torch.runtime.receiver import Receiver
-
-    recv = Receiver(ArraySampleSource(iq, FS), ReceiverConfig(), device=dev)
+    recv = make_receiver()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -908,7 +1499,7 @@ def profile_run(iq: np.ndarray, dev) -> None:
         log("profile: the profiler recorded no device time (not measured)")
         return
     busy_ms = sum(e.device_time_total for e in events) / 1e3
-    log(f"profile: replay of {recv.source.seconds_consumed:.0f} s of signal, wall "
+    log(f"profile: {recv.band} replay of {recv.source.seconds_consumed:.0f} s of signal, wall "
         f"{wall * 1e3:.1f} ms under the profiler, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / (wall * 1e3):.1f} %)")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
@@ -928,9 +1519,31 @@ def main() -> int:
     log(smi)
     log(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    flags = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
+    if flags:
+        return smoke(dev, flags[0].partition("=")[2], None)
+    tmp = tempfile.TemporaryDirectory()
+    scenes = Scenes(SCENE_NAMES, tmp.name)
+    try:
+        return smoke(dev, None, scenes)
+    finally:
+        scenes.close()
+        tmp.cleanup()
 
+
+# The replays' scenes (``synthesize_named``), in the order they are needed.
+SCENE_NAMES = ["gps", "gps_8x", "glonass", "glonass_8x", "dual_gps", "dual_glonass",
+               "iono_l1", "iono_l2"]
+
+
+def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
+    """Everything after the device check: with ``only`` (names, or "" for
+    all) the kernel checks alone, else the whole run on ``scenes``."""
+    from gypsum_tpu_torch.core.config import ReceiverConfig
     from gypsum_tpu_torch.core.device import resolve_device
     from gypsum_tpu_torch.io.sources import ArraySampleSource, DecimatingSampleSource
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+    from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
     from gypsum_tpu_torch.ops import kernels
     from gypsum_tpu_torch.ops.fir_decimate import FIR_DECIMATE_KERNEL
     from gypsum_tpu_torch.ops.fixup import FIXUP_KERNEL
@@ -950,38 +1563,41 @@ def main() -> int:
         f"({time.perf_counter() - t0:.2f} s wall, nvcc sm_90a, in parallel)")
 
     sats, samples = synthetic_block(dev)
-    only = [a.partition("=")[2] for a in sys.argv[1:] if a.startswith("--kernels-only")]
-    if only:
+    glonass_blocks = {}
+
+    def glonass():
+        """The GLONASS checks' two 1000 ms blocks, synthesized at first use."""
+        if not glonass_blocks:
+            glonass_blocks.update(l1=glonass_block("l1", dev), l2=glonass_block("l2", dev))
+        return glonass_blocks
+
+    checks = {
+        "K1": lambda: check_fixup(dev, sats, samples),
+        "K2": lambda: check_peak_reduce(dev),
+        "K3": lambda: check_track_block(dev, sats, samples),
+        "K4": lambda: check_wipeoff_lag(dev, sats, samples),
+        "K5": lambda: check_fir_decimate(dev),
+        "K1G": lambda: check_fixup_glonass(dev, glonass()),
+        "K2G": lambda: check_peak_reduce_glonass(dev, glonass()["l1"][2]),
+        "K4G": lambda: check_wipeoff_lag_glonass(dev, glonass()),
+        "K5G": lambda: check_fir_decimate_glonass(dev),
+    }
+    if only is not None:
         # A short run for work on a kernel: the checks of the kernels named
-        # (all five without names); no replay, so no launch counts and no
-        # result line.
-        checks = {
-            "K1": lambda: check_fixup(dev, sats, samples),
-            "K2": lambda: check_peak_reduce(dev),
-            "K3": lambda: check_track_block(dev, sats, samples),
-            "K4": lambda: check_wipeoff_lag(dev, sats, samples),
-            "K5": lambda: check_fir_decimate(dev),
-        }
-        names = only[0].split(",") if only[0] else list(checks)
+        # (all of them without names); no replay, so no launch counts and
+        # no result line.
+        names = only.split(",") if only else list(checks)
         log(json.dumps({"kernels": [checks[name]() for name in names]}))
         return 0
-    k1 = check_fixup(dev, sats, samples)
-    k2 = check_peak_reduce(dev)
-    k5 = check_fir_decimate(dev)
-    k4 = check_wipeoff_lag(dev, sats, samples)
-    k3 = check_track_block(dev, sats, samples)
+    entries = {name: check() for name, check in checks.items()}
     check_scan_variants(dev, sats, samples)
-    del samples
+    del samples, glonass_blocks
     torch.cuda.empty_cache()
+    k1, k2, k3, k4, k5 = (entries[k] for k in ("K1", "K2", "K3", "K4", "K5"))
 
-    t0 = time.perf_counter()
-    rx, iq = synthesize_scene()
-    log(f"e2e scene: PRNs {SCENE_PRNS}, 23 s at {FS:.0f} sps, noise 0.35, "
-        f"synthesized in {time.perf_counter() - t0:.1f} s (host)")
-    with tempfile.TemporaryDirectory() as tmp:
-        capture = Path(tmp) / "scene.npy"
-        np.save(capture, iq)
-        run_cli(capture, rx)
+    iq = scenes.get("gps")
+    rx = lla_to_ecef(*TRUTH_LLA)
+    run_cli(scenes.path("gps"), rx)
 
     # The main paths: counts set to 0 just before each run, read just after.
     reset_launches()
@@ -1055,14 +1671,8 @@ def main() -> int:
     # The decimating front end at full width: the same scene as an
     # 8.184 Msps capture, through the CLI and through the source. The code
     # phases shift by the filter's group delay; the fix must not.
-    t0 = time.perf_counter()
-    _, iq_fast = synthesize_scene(FS_FAST)
-    log(f"e2e decimated scene: 23 s at {FS_FAST:.0f} sps ({iq_fast.nbytes / 1e9:.2f} GB), "
-        f"synthesized in {time.perf_counter() - t0:.1f} s (host)")
-    with tempfile.TemporaryDirectory() as tmp:
-        capture = Path(tmp) / "scene_8x.npy"
-        np.save(capture, iq_fast)
-        run_cli(capture, rx, "--sample-rate", f"{FS_FAST:.0f}")
+    iq_fast = scenes.get("gps_8x")
+    run_cli(scenes.path("gps_8x"), rx, "--sample-rate", f"{FS_FAST:.0f}")
     reset_launches()
     source = DecimatingSampleSource(ArraySampleSource(iq_fast, FS_FAST), FS, device=dev)
     read_block, read_s = source.read_block, []
@@ -1090,9 +1700,14 @@ def main() -> int:
     log(f"timing: one 1000 ms tracking block (phase 1 bf16 matmul with float32 "
         f"output + K1) {track_ms:.3f} ms; one 10 ms acquisition sweep {acq_ms:.3f} ms")
 
-    profile_run(iq, dev)
+    profile_run(lambda: Receiver(ArraySampleSource(iq, FS), ReceiverConfig(), device=dev))
+    del iq, recv
 
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    # The GLONASS bands: the K1, K2, K4 and K5 entries at GLONASS inputs get
+    # their launches from these replays.
+    run_glonass_replays(dev, scenes, *(entries[k] for k in ("K1G", "K2G", "K4G", "K5G")))
+
+    log(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({
         "ok": True,
         "device": {

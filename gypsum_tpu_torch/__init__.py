@@ -1,4 +1,5 @@
-"""gypsum_tpu_torch: the gypsum-tpu GPS L1 C/A receiver on PyTorch and CUDA.
+"""gypsum_tpu_torch: the gypsum-tpu GNSS receiver (GPS L1 C/A + SBAS, GLONASS
+L1OF/L2OF) on PyTorch and CUDA.
 
 A port of the JAX package ``gypsum_tpu`` (the reference, which stays as it
 is) to PyTorch, for an NVIDIA H100. It imports neither JAX nor anything of
@@ -12,8 +13,9 @@ written anew:
                 sources under ``csrc/``, built by ``ops/kernels.py``).
 - ``acquire`` : batched acquisition over [satellite x Doppler x code phase].
 - ``track``   : the two-phase block tracker and the channel bank.
-- ``runtime`` : the receiver's block loop.
-- ``cli``     : ``python -m gypsum_tpu_torch replay --file X --until-fix``.
+- ``runtime`` : the receiver's block loop, and DualBandReceiver.
+- ``cli``     : ``python -m gypsum_tpu_torch replay --file X --until-fix``
+                (``--glonass-file``, ``--glonass-l2-file`` for GLONASS).
 
 Everything that runs on a device takes ``device=`` ("cuda" by default; it
 raises when no card is present instead of running on the CPU).
@@ -26,6 +28,7 @@ def __getattr__(name):
     """Lazy top-level API (``import gypsum_tpu_torch`` loads no torch)."""
     lazy = {
         "Receiver": ("gypsum_tpu_torch.runtime.receiver", "Receiver"),
+        "DualBandReceiver": ("gypsum_tpu_torch.runtime.receiver", "DualBandReceiver"),
         "ReceiverConfig": ("gypsum_tpu_torch.core.config", "ReceiverConfig"),
         "AcquisitionEngine": ("gypsum_tpu_torch.acquire.engine", "AcquisitionEngine"),
         "TrackerBank": ("gypsum_tpu_torch.track.loop", "TrackerBank"),

@@ -99,6 +99,15 @@ class AcquisitionEngine(nn.Module):
     """Searches a whole PRN family (default: the 32 GPS SVs; any registered
     C/A-family set, e.g. GPS+SBAS, via ``prns``) in one pass.
 
+    ``center_offsets_hz``: per-row FDMA sub-band centers (aligned with
+    ``prns``) for frequency-division families: GLONASS channels search
+    +/-doppler_max around k * 562.5 kHz (L2OF: k * 437.5 kHz) instead of
+    around 0. All rows must share ONE code (true of GLONASS); the whole
+    [channel x Doppler] grid then flattens into a single-code sweep over a
+    concatenated Doppler list. Reported ``doppler_hz`` stays the ABSOLUTE
+    baseband frequency (offset + Doppler); callers subtract the channel
+    center when seeding a tracker's offset-relative Doppler.
+
     The replica FFT table, the tiled replicas and the Doppler grids are
     registered buffers on ``device``.
     """
@@ -119,8 +128,11 @@ class AcquisitionEngine(nn.Module):
         self.samples_per_prn = int(samples_per_prn)
         self.prns = tuple(prns)
         cfg = self.config
+        offsets = None
         if center_offsets_hz is not None:
-            raise unported("FDMA (GLONASS) acquisition centers")
+            if len(center_offsets_hz) != len(self.prns):
+                raise ValueError("center_offsets_hz must align with prns")
+            offsets = np.asarray(center_offsets_hz, dtype=np.float32)
         if cfg.correlator not in (None, "matmul", "fft"):
             raise ValueError(
                 f"AcquisitionConfig.correlator must be 'matmul', 'fft' or None, "
@@ -130,19 +142,36 @@ class AcquisitionEngine(nn.Module):
             raise unported("the circulant-matmul acquisition sweep")
 
         reps = replica_table(self.samples_per_prn, self.prns)  # [S, L] float32 +/-1
+        if offsets is not None and not all(
+            np.array_equal(reps[0], reps[i]) for i in range(len(self.prns))
+        ):
+            raise ValueError(
+                "center_offsets_hz requires all rows to share one code "
+                "(an FDMA family); these PRNs have distinct codes"
+            )
+        # FDMA: one shared code row drives the flattened sweep.
+        sweep_reps = reps[:1] if offsets is not None else reps
         dev = self.device
         self.register_buffer(
-            "prn_fft_conj", torch.from_numpy(replica_fft_conj_table(reps)).to(dev)
+            "prn_fft_conj", torch.from_numpy(replica_fft_conj_table(sweep_reps)).to(dev)
         )
         self.register_buffer(
             "replica_tiled", torch.from_numpy(np.concatenate([reps, reps], axis=1)).to(dev)
         )
-        self.register_buffer("coarse_dopplers", torch.from_numpy(np.arange(
+        coarse = np.arange(
             -cfg.doppler_max_hz, cfg.doppler_max_hz + 1e-6, cfg.coarse_step_hz
-        ).astype(np.float32)).to(dev))
+        ).astype(np.float32)
+        self.register_buffer("coarse_dopplers", torch.from_numpy(coarse).to(dev))
         self.register_buffer("fine_offsets", torch.from_numpy(np.arange(
             -cfg.fine_span_hz, cfg.fine_span_hz + 1e-6, cfg.fine_step_hz
         ).astype(np.float32)).to(dev))
+        # FDMA: the centers, and the flattened [K * D] grid of absolute
+        # baseband frequencies the sweep runs over (None otherwise).
+        fdma = offsets is not None
+        self.register_buffer(
+            "center_offsets", torch.from_numpy(offsets).to(dev) if fdma else None)
+        self.register_buffer("sweep_dopplers", torch.from_numpy(
+            (offsets[:, None] + coarse[None, :]).reshape(-1)).to(dev) if fdma else None)
 
     # ---------------------------------------------------------------- device
 
@@ -156,16 +185,25 @@ class AcquisitionEngine(nn.Module):
         coarse_dopplers = self.coarse_dopplers
         fine_offsets = self.fine_offsets
 
-        # ---- Stage 1: coarse non-coherent sweep over the full grid.
+        # ---- Stage 1: coarse non-coherent sweep over the full grid. FDMA
+        # families flatten [channel x Doppler] into one single-code sweep
+        # over the concatenated per-channel grids ([1, K*D, L]), reshaped
+        # back to [K, D, L].
+        fdma = self.center_offsets is not None
         noncoh = noncoherent_acquisition_sweep(
-            samples_ms, coarse_dopplers, self.prn_fft_conj, fs
+            samples_ms, self.sweep_dopplers if fdma else coarse_dopplers,
+            self.prn_fft_conj, fs,
         )  # [S, D, L]
+        if fdma:
+            noncoh = noncoh.reshape(len(self.prns), coarse_dopplers.shape[0], length)
         use_kernel = self.config.use_pallas_peak_reduce
         if use_kernel is None:
             use_kernel = False  # the reference's default (config.py)
         best_d_idx, code_phase, strength = coarse_peak(noncoh, use_kernel)
         sats = torch.arange(noncoh.shape[0], device=noncoh.device)
         coarse_doppler = coarse_dopplers[best_d_idx]  # [S]
+        if fdma:  # back to the absolute baseband frequency per channel
+            coarse_doppler = coarse_doppler + self.center_offsets
 
         # ---- Stage 2: coherent fine grid at the detected code phase.
         # Prompt replica: roll(r, cp)[l] = tiled[(L - cp) + l].

@@ -2,12 +2,16 @@
 
 Usage:
     python -m gypsum_tpu_torch [--device cuda|cpu] replay --file capture.npy --until-fix
+    python -m gypsum_tpu_torch replay --glonass-file r.npy --until-fix
+    python -m gypsum_tpu_torch replay --file g.npy --glonass-file r.npy
+    python -m gypsum_tpu_torch replay --glonass-file l1.npy --glonass-l2-file l2.npy
 
 The JAX CLI's other sub-commands (synth, acquire, rtk, bench) and the
-replay flags outside the GPS L1 C/A slice (GLONASS files, checkpoints,
-RINEX/NMEA export, the web UI, assisted start, notch, beamform) are not
-ported yet (ROADMAP.md). Captures at other rates than 2.046 Msps go through
-the decimating front end (``--sample-rate``, ``--format`` or the sidecar).
+replay flags for checkpoints, RINEX/NMEA export, the web UI, assisted
+start, notch and beamform are not ported yet (ROADMAP.md). Captures at
+other rates than the band's processing rate (2.046 Msps GPS, 4.092 Msps
+GLONASS) go through the decimating front end (``--sample-rate``,
+``--glonass-rate``, ``--format`` or the sidecar).
 """
 
 from __future__ import annotations
@@ -45,6 +49,19 @@ def main(argv=None) -> int:
                    help="multipath-resistant pseudoranges: double-delta (HRC) "
                         "code-phase measurement instead of triangle vertex "
                         "interpolation (needs >= 4 samples/chip to help)")
+    p.add_argument("--glonass-file", default=None, metavar="PATH",
+                   help="GLONASS L1OF band capture (second front end at "
+                   "1602 MHz): with --file, a dual-constellation replay "
+                   "whose fix solves the GPS-GLONASS inter-system bias; "
+                   "alone, a GLONASS-only replay")
+    p.add_argument("--glonass-rate", type=float, default=None,
+                   help="GLONASS capture sample rate (else sidecar; 4.092e6 for .npy)")
+    p.add_argument("--glonass-l2-file", default=None, metavar="PATH",
+                   help="GLONASS L2OF band capture (third front end at "
+                   "1246 MHz, same 511-chip code): tracked but never "
+                   "decoded; the per-SV L2-L1 code-delay difference is the "
+                   "MEASURED ionospheric correction (requires "
+                   "--glonass-file)")
     p.set_defaults(fn=cmd_replay)
 
     args = parser.parse_args(argv)

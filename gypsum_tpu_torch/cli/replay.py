@@ -1,9 +1,13 @@
-"""``replay`` subcommand: the full receiver over a GPS L1 C/A capture
-(reference parity: gypsum-cli.py's only mode).
+"""``replay`` subcommand: the full receiver over a capture (reference
+parity: gypsum-cli.py's only mode), plus the GLONASS and multi-band replays
+the reference lacks.
 
-Port of gypsum_tpu/cli/replay.py for the single-band GPS replay. Its
-narration lines (acquisitions, drops, coasting, subframes, SBAS MT9 and the
-``FIX lat=... lon=...`` lines) are the JAX CLI's.
+Port of gypsum_tpu/cli/replay.py: GPS L1 C/A (``--file``), GLONASS only
+(``--glonass-file``), GPS + GLONASS (both: the fix solves the inter-system
+bias) and GLONASS L1OF + L2OF (``--glonass-file --glonass-l2-file``: the
+measured ionosphere). Its narration lines (acquisitions, drops, coasting,
+subframes, SBAS MT9, GLONASS strings 1-4 and the ``FIX lat=... lon=...``
+lines) are the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import logging
 
 import numpy as np
 
-from gypsum_tpu_torch.cli.sources import _open_source
+from gypsum_tpu_torch.cli.sources import _open_glonass_source, _open_source
 
 _logger = logging.getLogger("gypsum_tpu_torch")
 
@@ -40,6 +44,11 @@ def narrate(recv, report) -> None:
         if blk.message_type == 9:  # GEO navigation (1-line/s otherwise)
             print(f"[{report.block_start:8.1f}s] SBAS PRN {prn} MT9 "
                   f"GEO navigation @ {blk.leading_edge_timestamp:.3f}s")
+    for prn, ev in report.glonass_strings:
+        if ev.string.m <= 4:  # the ephemeris strings (2 s cadence otherwise)
+            print(f"[{report.block_start:8.1f}s] GLONASS k={prn - 208:+d} "
+                  f"string {ev.string.m} @ "
+                  f"{ev.trailing_edge_receiver_timestamp:.3f}s")
     if report.fix is not None:
         f = report.fix
         vel = ""
@@ -54,16 +63,34 @@ def narrate(recv, report) -> None:
             pl = (f" hpl={f.protection['hpl_m']:.0f}m"
                   f" vpl={f.protection['vpl_m']:.0f}m")
         dgps = f" sbas-corrected={list(f.sbas_corrected)}" if f.sbas_corrected else ""
+        dfi = ""
+        if f.iono_measured_m:
+            vals = list(f.iono_measured_m.values())
+            dfi = f" iono-measured={np.mean(vals):.1f}m@{len(vals)}sv"
+        isb = (
+            f" isb={f.inter_system_bias_s * 1e9:+.1f}ns"
+            if f.inter_system_bias_s is not None
+            else ""
+        )
         print(f"[{report.block_end:8.1f}s] {tag} lat={f.lat_deg:.6f} lon={f.lon_deg:.6f} "
-              f"alt={f.alt_m:.0f}m bias={f.clock_bias_s * 1e6:.2f}us{vel}{pl} "
-              f"sats={f.satellites_used}{dgps}")
+              f"alt={f.alt_m:.0f}m bias={f.clock_bias_s * 1e6:.2f}us{vel}{pl}{isb} "
+              f"sats={f.satellites_used}{dgps}{dfi}")
 
 
 def cmd_replay(args) -> int:
     from gypsum_tpu_torch.core.config import DEFAULT_CONFIG
-    from gypsum_tpu_torch.runtime.receiver import Receiver
+    from gypsum_tpu_torch.runtime.receiver import DualBandReceiver, Receiver
 
-    source = _open_source(args)
+    glonass_file = args.glonass_file
+    l2_file = args.glonass_l2_file
+    if l2_file and not glonass_file:
+        raise SystemExit("--glonass-l2-file requires --glonass-file (the L2 "
+                         "band only contributes the iono difference against "
+                         "tracked L1 channels)")
+    if not args.file and not args.rtlsdr and glonass_file:
+        source = None  # GLONASS-only replay
+    else:
+        source = _open_source(args)
     config = DEFAULT_CONFIG
     if args.block_ms:
         config = config.replace(tracking=config.tracking.__class__(block_size_ms=args.block_ms))
@@ -76,9 +103,40 @@ def cmd_replay(args) -> int:
         from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS, SBAS_PRN_IDS
 
         prns = sorted(set(prns or ALL_PRN_IDS) | set(SBAS_PRN_IDS))
-    receiver = Receiver(source, config, eligible_prns=prns, device=args.device)
+
+    def open_glonass(path):
+        return _open_glonass_source(path, args.glonass_rate, args.device)
+
+    dual = None
+    l2_source = open_glonass(l2_file) if l2_file else None
+    if glonass_file and (source is not None or l2_source is not None):
+        # GPS + GLONASS (the fix solves the inter-system bias), or GLONASS
+        # L1OF + L2OF (no GPS: L1OF owns the fix and L2OF contributes the
+        # measured-iono difference, the only iono correction there).
+        dual = DualBandReceiver(
+            source, open_glonass(glonass_file), config, eligible_prns=prns,
+            glonass_l2_source=l2_source, device=args.device,
+        )
+        if dual.gps is not None:
+            receiver = dual.gps  # listeners ride the fix-owning band
+            _logger.info("dual-band replay: GPS %s + GLONASS %s%s", args.file,
+                         glonass_file, f" + L2 {l2_file}" if l2_file else "")
+        else:
+            receiver = dual.glonass
+            _logger.info("GLONASS dual-frequency replay: L1 %s + L2 %s",
+                         glonass_file, l2_file)
+        source = receiver.source
+    elif glonass_file:
+        receiver = Receiver(open_glonass(glonass_file), config, band="glonass",
+                            device=args.device)
+        source = receiver.source
+        _logger.info("GLONASS-only replay: %s", glonass_file)
+    else:
+        receiver = Receiver(source, config, eligible_prns=prns, device=args.device)
     receiver.add_block_listener(narrate)
-    receiver.run(max_seconds=args.duration, until_fix=args.until_fix)
+    if dual is not None and dual.glonass is not receiver:
+        dual.glonass.add_block_listener(narrate)
+    (dual or receiver).run(max_seconds=args.duration, until_fix=args.until_fix)
 
     print(f"processed {source.seconds_consumed:.1f}s; "
           f"{receiver.subframe_count} subframes; "

@@ -1,23 +1,31 @@
 """Opening a capture for the CLI (file formats and sidecars).
 
-Port of gypsum_tpu/cli/sources.py for the GPS L1 C/A replay: ``.npy``
-captures and raw interleaved captures described by a ``.json`` sidecar or a
-named ``--format``. A capture at another rate than 2.046 Msps goes through
-the decimating front end on the chosen device. The interference notch and
-the antenna-array beamformer are not ported yet (they raise).
+Port of gypsum_tpu/cli/sources.py: ``.npy`` captures and raw interleaved
+captures described by a ``.json`` sidecar or a named ``--format`` (GPS L1),
+and the GLONASS band front end (``_open_glonass_source``). A capture at
+another rate than the band's processing rate (2.046 Msps for GPS, 4.092
+Msps for GLONASS) goes through the decimating front end on the chosen
+device. The interference notch and the antenna-array beamformer are not
+ported yet (they raise).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import pathlib
 
 import numpy as np
 
 from gypsum_tpu_torch.core.unported import unported
 
+_logger = logging.getLogger("gypsum_tpu_torch")
+
 PROCESSING_RATE = 2.046e6  # all signal processing runs at 2x the chip rate
+# GLONASS L1OF band processing rate: 4092 samples per 1 ms code period keeps
+# FDMA channels out to k = +/-2 inside Nyquist (signal/scenarios.py).
+GLONASS_PROCESSING_RATE = 4.092e6
 
 
 def _add_file_source_args(p: argparse.ArgumentParser) -> None:
@@ -79,4 +87,41 @@ def _open_source(args):
     # Non-native rates go through the decimating/resampling front end.
     if abs(source.attributes.sample_rate - PROCESSING_RATE) > 1e-6:
         source = DecimatingSampleSource(source, PROCESSING_RATE, device=args.device)
+    return source
+
+
+def _open_glonass_source(path: str, sample_rate: float | None, device: str):
+    """The GLONASS band front end: .npy (or sidecar-described raw) capture
+    at the GLONASS processing rate (decimated down to it on ``device`` if
+    higher)."""
+    from gypsum_tpu_torch.io.sources import (
+        ArraySampleSource,
+        DecimatingSampleSource,
+        FileSampleSource,
+        RecordingInfo,
+    )
+
+    if path.endswith(".npy"):
+        rate = sample_rate
+        if rate is None:
+            sidecar = pathlib.Path(path + ".json")
+            rate = (
+                float(json.loads(sidecar.read_text())["sample_rate"])
+                if sidecar.exists()
+                else GLONASS_PROCESSING_RATE
+            )
+        source = ArraySampleSource(np.load(path), rate)
+    else:
+        info = (
+            RecordingInfo(path=pathlib.Path(path), sample_rate=sample_rate)
+            if sample_rate
+            else RecordingInfo.from_sidecar(path)
+        )
+        source = FileSampleSource(info)
+    if abs(source.attributes.sample_rate - GLONASS_PROCESSING_RATE) > 1e-6:
+        _logger.info(
+            "decimating %.0f Hz GLONASS capture to %.0f Hz",
+            source.attributes.sample_rate, GLONASS_PROCESSING_RATE,
+        )
+        source = DecimatingSampleSource(source, GLONASS_PROCESSING_RATE, device=device)
     return source

@@ -1,9 +1,9 @@
 """The error raised where the port reaches a module it has not ported yet.
 
 The host-side modules of this package are copies of the JAX package's. A
-few of their code paths reach modules outside the ported slice (GLONASS
-orbits and navigation strings, the notching front end, the deep coast
-measurement). Those paths raise this error at the point of use
+few of their code paths reach modules outside the ported slice (the
+notching front end, antenna-array captures, the circulant acquisition
+sweep, the deep coast measurement). Those paths raise this error at the point of use
 instead of doing less than the reference does.
 """
 

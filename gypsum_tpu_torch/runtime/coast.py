@@ -69,7 +69,9 @@ class CoastMixin:
         # are garbage, and a clean restart resyncs within seconds of
         # recovered signal.
         if pipe.glonass is not None:
-            raise unported("GLONASS string decoding (nav/glonass)")
+            from gypsum_tpu_torch.nav.glonass import GlonassStringDecoder
+
+            pipe.glonass = GlonassStringDecoder()
         elif pipe.sbas is not None:
             from gypsum_tpu_torch.nav.sbas import SbasFrameDecoder
 

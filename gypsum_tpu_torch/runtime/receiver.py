@@ -1,4 +1,4 @@
-"""The receiver master loop (GPS L1 C/A band).
+"""The receiver master loop (GPS L1 C/A, GLONASS L1OF and L2OF bands).
 
 Torch port of gypsum_tpu/runtime/receiver.py. Reference behavior being
 reproduced (gypsum/receiver.py): maintain an acquisition pool and
@@ -22,13 +22,14 @@ around each subframe event in order (gypsum/receiver.py:106-117 does the
 same accounting by interleaving 1 ms steps).
 
 The receiver is the composition root over runtime/pipeline.py (per-channel
-decode state, BlockReport), runtime/coast.py (the vector-coast tier) and
-runtime/bands.py (SBAS GEO channel processing; its GLONASS processors are
-reached only by the GLONASS bands, which this port does not run yet).
+decode state, BlockReport), runtime/coast.py (the vector-coast tier),
+runtime/bands.py (the GLONASS L1OF/L2OF and SBAS GEO channel processors)
+and runtime/dualband.py (DualBandReceiver, re-exported here).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 
 import numpy as np
@@ -37,8 +38,13 @@ import torch
 
 from gypsum_tpu_torch.acquire.engine import shared_acquisition_engine
 from gypsum_tpu_torch.core.config import ReceiverConfig
+from gypsum_tpu_torch.core.constants import (
+    GLONASS_L1_BASE_HZ,
+    GLONASS_L1_CHANNEL_SPACING_HZ,
+    GLONASS_L2_BASE_HZ,
+    GLONASS_L2_CHANNEL_SPACING_HZ,
+)
 from gypsum_tpu_torch.core.device import resolve_device
-from gypsum_tpu_torch.core.unported import unported
 from gypsum_tpu_torch.core.events import (
     CannotDetermineBitPhaseEvent,
     CannotDetermineSubframePhaseEvent,
@@ -49,10 +55,11 @@ from gypsum_tpu_torch.core.events import (
 from gypsum_tpu_torch.io.sources import SampleSource
 from gypsum_tpu_torch.nav.bits import BitIntegrator
 from gypsum_tpu_torch.nav.frames import EmitSubframeEvent, SubframeDecoder
+from gypsum_tpu_torch.nav.glonass import GlonassStringDecoder
 from gypsum_tpu_torch.runtime.bands import BandProcessorsMixin
 from gypsum_tpu_torch.runtime.coast import CoastMixin
 from gypsum_tpu_torch.runtime.pipeline import BlockReport, _ChannelPipeline  # noqa: F401  (re-export)
-from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS
+from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS, GLONASS_PRN_IDS, glonass_frequency_number
 from gypsum_tpu_torch.solve.world import WorldModel
 from gypsum_tpu_torch.track.loop import ChannelObservation, TrackerBank
 
@@ -70,18 +77,22 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         attempt_fixes: bool = True,
         device: str | torch.device = "cuda",
     ) -> None:
-        """``band``: "gps" (L1 C/A + SBAS family). The GLONASS bands
-        ("glonass", "glonass_l2") are not ported yet and raise.
+        """``band``: "gps" (L1 C/A + SBAS family, the default), "glonass"
+        (the L1OF FDMA band at 1602 MHz: its own source, acquisition
+        centers, tracker carrier offsets and string-decode pipeline), or
+        "glonass_l2" (the L2OF band at 1246 MHz: the SAME 511-chip code, so
+        the channels track but never decode; they contribute the per-SV L2
+        code delay the world model differences against L1 for the MEASURED
+        ionospheric correction, solve/world_multiconstellation.py).
 
-        ``world``: share a WorldModel across receivers;
+        ``world``: share a WorldModel across receivers (DualBandReceiver
+        runs one Receiver per band into one world model and one fix);
         ``attempt_fixes=False`` makes this receiver contribute observations
         without racing the owner's fix attempts.
 
         ``device``: where acquisition and tracking run ("cuda" by default;
         raises when no card is present, pass "cpu" to run on the CPU)."""
-        if band in ("glonass", "glonass_l2"):
-            raise unported(f"the {band} band (GLONASS)")
-        if band != "gps":
+        if band not in ("gps", "glonass", "glonass_l2"):
             raise ValueError(f"unknown band {band!r} (gps | glonass | glonass_l2)")
         self.device = resolve_device(device)
         self.config = config or ReceiverConfig()
@@ -92,18 +103,46 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         self.samples_per_prn = attrs.samples_per_prn
         self._attempt_fixes = attempt_fixes
 
-        # The searched/tracked PRN family: the 32 GPS SVs, widened to
-        # include any SBAS (or other registered C/A-family) PRNs the caller
-        # asks for.
-        requested = set(eligible_prns or ALL_PRN_IDS)
-        extra = requested - set(ALL_PRN_IDS)
-        self.prn_family: tuple[int, ...] = (
-            tuple(sorted(set(ALL_PRN_IDS) | extra)) if extra else ALL_PRN_IDS
-        )
-        self._channel_carrier_hz: dict[int, float] = {}
+        tracking_cfg = self.config.tracking
+        acq_offsets = None
+        if band in ("glonass", "glonass_l2"):
+            base_hz, spacing_hz = (
+                (GLONASS_L2_BASE_HZ, GLONASS_L2_CHANNEL_SPACING_HZ)
+                if band == "glonass_l2"
+                else (GLONASS_L1_BASE_HZ, GLONASS_L1_CHANNEL_SPACING_HZ)
+            )
+            requested = set(eligible_prns or GLONASS_PRN_IDS)
+            bad = requested - set(GLONASS_PRN_IDS)
+            if bad:
+                raise ValueError(f"not GLONASS channel ids (201..214): {sorted(bad)}")
+            self.prn_family = GLONASS_PRN_IDS
+            acq_offsets = tuple(
+                float(glonass_frequency_number(p) * spacing_hz)
+                for p in self.prn_family
+            )
+            self._channel_offset_hz = dict(zip(self.prn_family, acq_offsets))
+            self._channel_carrier_hz = {
+                p: base_hz + off for p, off in self._channel_offset_hz.items()
+            }
+            if tracking_cfg.aiding_carrier_hz is None:
+                tracking_cfg = dataclasses.replace(tracking_cfg, aiding_carrier_hz=base_hz)
+            if tracking_cfg.chips_per_code == 1023:
+                # L1OF short code: 511 chips per 1 ms period.
+                tracking_cfg = dataclasses.replace(tracking_cfg, chips_per_code=511)
+        else:
+            # The searched/tracked PRN family: the 32 GPS SVs, widened to
+            # include any SBAS (or other registered C/A-family) PRNs the
+            # caller asks for.
+            requested = set(eligible_prns or ALL_PRN_IDS)
+            extra = requested - set(ALL_PRN_IDS)
+            self.prn_family: tuple[int, ...] = (
+                tuple(sorted(set(ALL_PRN_IDS) | extra)) if extra else ALL_PRN_IDS
+            )
+            self._channel_offset_hz: dict[int, float] = {}
+            self._channel_carrier_hz: dict[int, float] = {}
         self.acquisition = shared_acquisition_engine(
             self.sample_rate, self.samples_per_prn, self.config.acquisition,
-            prns=self.prn_family, device=self.device,
+            prns=self.prn_family, center_offsets_hz=acq_offsets, device=self.device,
         )
         # Integer captures ship raw words to the device and dequantize there
         # (core/planes.py:dequantize_planes): 4x less host->device traffic
@@ -113,7 +152,7 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         self.bank = TrackerBank(
             self.sample_rate,
             self.samples_per_prn,
-            self.config.tracking,
+            tracking_cfg,
             n_channels=self.config.max_channels,
             input_offset=self._input_offset,
             prns=self.prn_family,
@@ -434,13 +473,31 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         for hit in hits:
             if not self.bank.free_slots:
                 break
+            # FDMA channels: the engine reports the ABSOLUTE baseband
+            # frequency; the tracker's Doppler state is offset-relative.
+            offset = self._channel_offset_hz.get(hit.prn, 0.0)
             slot = self.bank.assign(
                 prn=hit.prn,
-                doppler_hz=hit.doppler_hz,
+                doppler_hz=hit.doppler_hz - offset,
                 code_phase_samples=hit.code_phase_samples,
                 carrier_phase_rad=hit.carrier_phase_rad,
+                carrier_offset_hz=offset,
             )
-            if hit.prn >= 100:
+            if self.band == "glonass_l2":
+                # Measurement-only channel: tracks the shared SP code at the
+                # L2 sub-band, never decodes; its block-end code delay is
+                # the L2 half of the measured iono difference.
+                self.pipelines[hit.prn] = _ChannelPipeline(
+                    prn=hit.prn, slot=slot, integrator=None, decoder=None,
+                    acquired_at=block_start, carrier_offset_hz=offset,
+                )
+            elif self.band == "glonass":
+                self.pipelines[hit.prn] = _ChannelPipeline(
+                    prn=hit.prn, slot=slot, integrator=None, decoder=None,
+                    acquired_at=block_start, glonass=GlonassStringDecoder(),
+                    carrier_offset_hz=offset,
+                )
+            elif hit.prn >= 100:
                 from gypsum_tpu_torch.nav.sbas import SbasFrameDecoder
 
                 self.pipelines[hit.prn] = _ChannelPipeline(
@@ -470,6 +527,12 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         pipe = self.pipelines[obs.prn]
         if pipe.coast_started is not None:  # any family coasts the same way
             self._process_coasting_channel(obs, block_start, block_ms, report, pipe)
+            return
+        if self.band == "glonass_l2":
+            self._process_l2_channel(obs, block_start, block_ms, report, pipe)
+            return
+        if pipe.glonass is not None:
+            self._process_glonass_channel(obs, block_start, block_ms, report, pipe)
             return
         if pipe.sbas is not None:
             self._process_sbas_channel(obs, block_start, block_ms, report, pipe)
@@ -635,3 +698,8 @@ class _Upload:
             # is now used on the current one.
             self._tensor.record_stream(torch.cuda.current_stream(self._tensor.device))
         return self._tensor
+
+
+# Public API re-export (dualband imports Receiver from this module, so the
+# import must come after the class definition).
+from gypsum_tpu_torch.runtime.dualband import DualBandReceiver  # noqa: E402,F401

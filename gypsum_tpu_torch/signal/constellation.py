@@ -27,7 +27,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from gypsum_tpu_torch.core.unported import unported
 from gypsum_tpu_torch.core.constants import (
     CA_CHIP_RATE_HZ,
     GPS_L1_FREQUENCY_HZ,
@@ -116,6 +115,28 @@ class GlonassSatellite:
         from gypsum_tpu_torch.signal.prn import glonass_prn_id
 
         return glonass_prn_id(self.ephemeris.frequency_number)
+
+
+def _glonass_symbols(
+    sat: "GlonassSatellite", glo_day_start: float, duration_s: float
+) -> tuple[np.ndarray, float]:
+    """(+/-1 100 sps symbol stream, GLONASS-day time of its first symbol)
+    covering the capture with slack. Strings are emitted against the SV's
+    own clock; frame starts sit on 30 s boundaries of the GLONASS day and
+    string 1's tk stamps each frame."""
+    from gypsum_tpu_torch.nav.glonass import encode_frame_symbols, frame_strings_for_ephemeris
+    from gypsum_tpu_torch.solve.glonass import strings_from_glonass_ephemeris
+
+    eph_strings = strings_from_glonass_ephemeris(sat.ephemeris)
+    first_frame = int(np.floor((glo_day_start - 2.0) / 30.0))
+    n_frames = int(np.ceil((duration_s + 6.0) / 30.0)) + 1
+    chunks = []
+    for f in range(first_frame, first_frame + n_frames):
+        frame_start_day_s = (f * 30.0) % 86400.0
+        chunks.append(encode_frame_symbols(
+            frame_strings_for_ephemeris(eph_strings, frame_start_day_s)
+        ))
+    return np.concatenate(chunks).astype(np.float64), first_frame * 30.0
 
 
 @dataclass
@@ -403,8 +424,12 @@ def synthesize_constellation(
     chunk = int(round(chunk_seconds * sample_rate))
     rng = np.random.default_rng(seed)
 
-    if any(isinstance(s, GlonassSatellite) for s in satellites):
-        raise unported("GLONASS synthesis (solve/glonass, nav/glonass)")
+    is_glonass_scene = any(isinstance(s, GlonassSatellite) for s in satellites)
+    if is_glonass_scene and not all(isinstance(s, GlonassSatellite) for s in satellites):
+        raise ValueError(
+            "GLONASS (1602 MHz) and GPS/SBAS (1575.42 MHz) cannot share one "
+            "baseband capture; synthesize the bands separately"
+        )
 
     for sat in satellites:
         code = ca_code(sat.prn).astype(np.float64) * 2.0 - 1.0
@@ -415,7 +440,57 @@ def synthesize_constellation(
         f_off = 0.0  # FDMA baseband offset (carrier - front-end center)
         sv_time_shift = 0.0  # t_sv timeline = t + shift - tau + dtsv
         iono_scale = 1.0
-        if isinstance(sat, SbasGeoSatellite):
+        if isinstance(sat, GlonassSatellite):
+            from gypsum_tpu_torch.core.constants import (
+                GLONASS_CHIP_COUNT,
+                GLONASS_CHIP_RATE_HZ,
+                GLONASS_L1_BASE_HZ,
+            )
+            from gypsum_tpu_torch.solve.glonass import (
+                glonass_clock_ahead_s,
+                glonass_day_time_from_gps_sow,
+                glonass_satellite_position,
+            )
+
+            eph_g = sat.ephemeris
+            chip_rate = GLONASS_CHIP_RATE_HZ
+            chip_count = GLONASS_CHIP_COUNT
+            if glonass_band == "l2":
+                from gypsum_tpu_torch.core.constants import (
+                    GLONASS_L2_BASE_HZ,
+                    GLONASS_L2_CHANNEL_SPACING_HZ,
+                )
+
+                k_num = eph_g.frequency_number
+                f_car = GLONASS_L2_BASE_HZ + k_num * GLONASS_L2_CHANNEL_SPACING_HZ
+                f_off = f_car - GLONASS_L2_BASE_HZ
+            elif glonass_band == "l1":
+                f_car = eph_g.carrier_frequency_hz
+                f_off = f_car - GLONASS_L1_BASE_HZ
+            else:
+                raise ValueError(f"glonass_band must be 'l1' or 'l2', got {glonass_band!r}")
+            # Klobuchar is referenced to GPS L1; group delay scales as f^-2.
+            iono_scale = (GPS_L1_FREQUENCY_HZ / f_car) ** 2
+            # GLONASS day-time of the scene origin (assumes the capture does
+            # not straddle GLONASS midnight — day wrap unsupported here).
+            glo0 = (
+                glonass_day_time_from_gps_sow(gps_start_time_sow, leap_seconds)
+                + glonass_time_offset_s
+            )
+            sv_time_shift = glo0 - gps_start_time_sow
+            data_vals, data_t0_sv = _glonass_symbols(
+                sat, glo0, duration_s
+            )
+            data_dur = 1.0 / 100.0  # 100 sps bi-binary line code
+
+            def pos_at(t, _e=eph_g, _sh=sv_time_shift):
+                return glonass_satellite_position(_e, np.asarray(t) + _sh)
+
+            def clk_at(t, _e=eph_g, _sh=sv_time_shift):
+                return np.asarray(glonass_clock_ahead_s(_e, np.asarray(t) + _sh))
+
+            tau_guess = 0.075  # MEO at ~19,100 km altitude
+        elif isinstance(sat, SbasGeoSatellite):
             # SBAS data channel: 2 ms FEC symbols, edges at integer SNT
             # seconds (SNT modeled as == GPS time).
             data_vals, data_t0_sv = _sbas_symbols(

@@ -12,7 +12,6 @@ from __future__ import annotations
 import numpy as np
 
 from gypsum_tpu_torch.core.constants import GPS_PI
-from gypsum_tpu_torch.core.unported import unported
 from gypsum_tpu_torch.solve.ephemeris import Ephemeris
 
 
@@ -146,4 +145,29 @@ def demo_glonass_constellation(
 ):
     """[GlonassSatellite, ...]: well-spread look geometries from the demo
     receiver, one FDMA channel each (defaults k = -2..+2)."""
-    raise unported("GLONASS orbits (solve/glonass)")
+    from gypsum_tpu_torch.signal.constellation import GlonassSatellite
+    from gypsum_tpu_torch.solve.glonass import glonass_ephemeris_from_look
+
+    ks = frequency_numbers if frequency_numbers is not None else [-2, -1, 0, 1, 2]
+    looks = [  # (elevation, azimuth, heading) spread around the sky
+        (62.0, 35.0, 25.0),
+        (48.0, 140.0, 160.0),
+        (35.0, 215.0, 75.0),
+        (55.0, 305.0, -40.0),
+        (28.0, 85.0, 120.0),
+        (41.0, 255.0, -130.0),
+    ]
+    rx = demo_receiver_ecef()
+    out = []
+    for i, k in enumerate(ks):
+        el, az, heading = looks[i % len(looks)]
+        out.append(GlonassSatellite(
+            ephemeris=glonass_ephemeris_from_look(
+                rx, el, az, frequency_number=k,
+                tb_day_s=DEMO_GLONASS_TB_DAY_S, heading_deg=heading,
+                tau_n_s=(2.0 * i - 4.0) * 1e-5, gamma_n=(i - 2) * 4e-12,
+                slot=i + 1,
+            ),
+            amplitude=amplitude,
+        ))
+    return out

@@ -19,7 +19,6 @@ from gypsum_tpu_torch.core.constants import (
     SPEED_OF_LIGHT_M_PER_S as C,
 )
 from gypsum_tpu_torch.core.events import Event
-from gypsum_tpu_torch.core.unported import unported
 from gypsum_tpu_torch.solve.fix import dilution_of_precision
 from gypsum_tpu_torch.solve.geodesy import ecef_to_lla
 from gypsum_tpu_torch.solve.world_records import (
@@ -131,7 +130,76 @@ class MultiConstellationMixin:
         bias, and for a GLONASS-only receiver the GPS frame is simply a
         consistent internal timeline (the absolute week is unknowable
         without GPS, and cancels)."""
-        raise unported("GLONASS navigation strings (solve/glonass)")
+        from gypsum_tpu_torch.solve.glonass import (
+            glonass_ephemeris_from_strings,
+            gps_sow_from_glonass_day_time,
+        )
+
+        rec = self._record(prn)
+        rec.leap_seconds = self.config.leap_seconds
+        s = event.string
+        edge_rx = event.trailing_edge_receiver_timestamp
+        events: list[Event] = []
+
+        if s.m == 1:
+            rec.glo_tk = s.tk_seconds
+            rec.glo_tk_edge_rx = edge_rx
+            rec.glo_pending = {1: (s, edge_rx)}
+        elif 2 <= s.m <= 4:
+            rec.glo_pending[s.m] = (s, edge_rx)
+            # Assemble once 1-4 are present and from one frame (<= 8 s span).
+            if all(m in rec.glo_pending for m in (1, 2, 3, 4)):
+                edges = [rec.glo_pending[m][1] for m in (1, 2, 3, 4)]
+                if max(edges) - min(edges) < 8.5:
+                    was = rec.glonass
+                    rec.glonass = glonass_ephemeris_from_strings(
+                        *(rec.glo_pending[m][0] for m in (1, 2, 3, 4)),
+                        frequency_number=frequency_number,
+                    )
+                    rec.orbit_version += 1
+                    if was is None:
+                        _logger.info(
+                            "determined orbit of GLONASS k=%+d (slot %d, tb %.0f)",
+                            frequency_number, rec.glonass.slot, rec.glonass.tb_day_s,
+                        )
+                        events.append(
+                            DeterminedSatelliteOrbitEvent(prn=prn, ephemeris=None)
+                        )
+                    self._flag_glonass_ghosts(prn, rec)
+                rec.glo_pending = {
+                    m: v for m, v in rec.glo_pending.items() if m == 1
+                }
+
+        if rec.glo_tk is None:
+            return events  # cannot anchor time until a string 1 arrives
+
+        # Edge instant on the 2 s GLONASS grid, then into the GPS frame.
+        elapsed = edge_rx - rec.glo_tk_edge_rx
+        edge_glo_day = rec.glo_tk + 2.0 + 2.0 * round(elapsed / 2.0)
+        approx = (
+            self.receiver_clock_slide + edge_rx
+            if self.receiver_clock_slide is not None
+            else edge_glo_day  # GLONASS-only: pick a consistent frame
+        )
+        tow = gps_sow_from_glonass_day_time(
+            edge_glo_day, approx, self.config.leap_seconds
+        )
+        rec.tow_at_last_subframe = tow
+        rec.prn_ticks_since_subframe = int(initial_ticks)
+        rec.counting = True
+        seed = (
+            rec.smoothed_delay_s
+            if rec.smoothed_delay_s is not None
+            else rec.code_phase_delay_s
+        )
+        rec.smoothed_delay_s = ((seed + 0.5e-3) % 1e-3) - 0.5e-3
+        rec.smoothing_depth = max(rec.smoothing_depth, 1)
+        # Never let a GLONASS edge re-base a GPS-derived clock slide (the
+        # two differ by the unsolved inter-system offset); set it only when
+        # no slide exists at all (GLONASS-only operation).
+        if self.receiver_clock_slide is None:
+            self.receiver_clock_slide = tow - edge_rx
+        return events
 
     def handle_glonass_l2_block(
         self,

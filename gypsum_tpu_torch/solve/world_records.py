@@ -16,7 +16,6 @@ import numpy as np
 from dataclasses import dataclass, field
 
 from gypsum_tpu_torch.core.events import Event
-from gypsum_tpu_torch.core.unported import unported
 from gypsum_tpu_torch.nav.subframes import Subframe1, Subframe2, Subframe3
 from gypsum_tpu_torch.solve.ephemeris import (
     Ephemeris,
@@ -224,6 +223,11 @@ class _SatelliteRecord:
             or self.glonass is not None
         )
 
+    def _glonass_day(self, sv_tow: float) -> float:
+        from gypsum_tpu_torch.solve.glonass import glonass_day_time_from_gps_sow
+
+        return glonass_day_time_from_gps_sow(sv_tow, self.leap_seconds)
+
     def sv_position(self, sv_tow: float, kepler_iterations: int) -> np.ndarray:
         key = (sv_tow, kepler_iterations, self.orbit_version)
         if self._pos_cache is not None and self._pos_cache[0] == key:
@@ -233,7 +237,9 @@ class _SatelliteRecord:
                 self.ephemeris, sv_tow, kepler_iterations=kepler_iterations
             )
         elif self.glonass is not None:
-            raise unported("GLONASS orbits (solve/glonass)")
+            from gypsum_tpu_torch.solve.glonass import glonass_satellite_position
+
+            pos = glonass_satellite_position(self.glonass, self._glonass_day(sv_tow))
         else:
             pos = self.geo.position_velocity(sv_tow % 86400.0)[0]
         self._pos_cache = (key, pos)
@@ -247,7 +253,9 @@ class _SatelliteRecord:
                 self.ephemeris, sv_tow, kepler_iterations=kepler_iterations
             )
         if self.glonass is not None:
-            raise unported("GLONASS orbits (solve/glonass)")
+            from gypsum_tpu_torch.solve.glonass import glonass_satellite_velocity
+
+            return glonass_satellite_velocity(self.glonass, self._glonass_day(sv_tow))
         return self.geo.position_velocity(sv_tow % 86400.0)[1]
 
     def sv_clock_correction(self, t: float, iterations: int) -> float:
@@ -257,7 +265,9 @@ class _SatelliteRecord:
         if self.ephemeris is not None:
             val = float(clock_correction(self.ephemeris, t, iterations=iterations))
         elif self.glonass is not None:
-            raise unported("GLONASS orbits (solve/glonass)")
+            from gypsum_tpu_torch.solve.glonass import glonass_clock_ahead_s
+
+            val = float(glonass_clock_ahead_s(self.glonass, self._glonass_day(t)))
         else:
             val = float(self.geo.clock_correction_s(t % 86400.0))
         self._clk_cache = (key, val)

@@ -102,5 +102,12 @@ def test_matches_jax_at_4x_rate():
     {"center_offsets_hz": tuple([0.0] * 32)},
 ])
 def test_unported_options_raise(kwargs):
+    """The circulant sweep is not ported and raises. FDMA centers are: on
+    the 32 GPS PRNs, whose codes differ, they raise the JAX engine's
+    ValueError (gypsum_tpu/acquire/engine.py:125-131)."""
+    if "center_offsets_hz" in kwargs:
+        with pytest.raises(ValueError, match="one code"):
+            AcquisitionEngine(FS, L, device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AcquisitionEngine(FS, L, device="cpu", **kwargs)

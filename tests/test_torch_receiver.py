@@ -144,13 +144,6 @@ def test_cli_replay_prints_a_fix(scene, tmp_path):
     assert "acquired PRN 25" in proc.stdout
 
 
-@pytest.mark.parametrize("band", ["glonass", "glonass_l2"])
-def test_glonass_bands_raise(band):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Receiver(ArraySampleSource(np.zeros(4092 * 20, np.complex64), 4.092e6),
-                 band=band, device="cpu")
-
-
 def test_deep_coast_measurement_raises_where_it_is_needed():
     """The coast tier's deep measurement (track/deepmeas) is not ported: a
     coasting channel with retained raw IQ and a prediction raises instead
