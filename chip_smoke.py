@@ -41,6 +41,9 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    Dopplers), with the engine's coarse peak by both routes; K4 at L = 4092
    with wipe frequencies of k x 562.5 kHz (437.5 kHz) + Doppler, up to
    3.94 MHz; K5 at factor 2 (8.184 -> 4.092 Msps) with its default filter.
+   And K2 at the deep sweep's shape (K2 D): the [256, 2046] accumulator
+   (32 PRNs x 8 Doppler bins) of a default 200 ms deep search, max and
+   argmax exact, the sum within 1e-6 of the largest row sum, two runs equal.
 
    Every kernel, its plain version and its library call are timed two ways
    (``two_way``), in turns within this one run. The **issue time** is what
@@ -78,17 +81,33 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    ``DualBandReceiver`` (the measured ionosphere on >= 4 satellites, the
    fix within 5 m); then one GLONASS replay under torch.profiler. The CLI
    runs in this process (its ``main``), so the launch counts see it;
-8. a ``{"kernels": [...]}`` line with each kernel's launches, error and
+8. the deep tier: the weak PRN 7 scene of tests/test_deep_acquire.py
+   (400 ms; the 10 ms engine blind, the deep search on code phase 512
+   within 5 Hz, PRN 3 under the threshold); a default 200 ms search over 32
+   PRNs on the eight demo satellites (36 K2 launches; ms per search and per
+   chunk; the sweep by stage, between events and replayed from a CUDA
+   graph); ``deep_acquire_glonass`` on the GLONASS-only scene (its channels
+   on the air on the 10 ms FDMA engine's code phases); the 38 s deep-fade
+   scene of tests/test_deepcoast.py through the default Receiver with that
+   test's tracking config, unpipelined (as that test runs: its bars) and
+   pipelined (the card's default: held to the JAX receiver's own
+   pipelined fixes, which miss those bars, ``FADE_PIPELINED_REFERENCE``);
+   that receiver checkpointed and reloaded, ``acquire --deep --snapshot``
+   on its orbits (held to the JAX CLI's fix, ``SNAPSHOT_REFERENCE``), and
+   the 23 s GPS scene replayed with ``--duration 12 --checkpoint``, then
+   resumed, within 1 m of the uninterrupted run's fixes; one fade replay
+   under torch.profiler;
+9. a ``{"kernels": [...]}`` line with each kernel's launches, error and
    both times beside its bound, and an entry per kernel at its GLONASS
-   inputs (launches from the GLONASS replays);
-9. last line: ``{"ok": true, "device": {...}}``.
+   inputs (launches from the GLONASS replays) and at the deep sweep's;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 It exits with an error at once when no CUDA device is present.
 
 ``python3 chip_smoke.py --kernels-only`` stops after step 3, and
 ``--kernels-only=K2,K4`` checks and times only the kernels it names (K1G,
-K2G, K4G and K5G name the GLONASS checks): a
+K2G, K4G and K5G name the GLONASS checks, K2D the deep sweep's): a
 short run for work on a kernel (no replay, so no launch counts and no result
 line). The checks call the wrappers with their oldest signatures (K4's
 optional ``n_split`` is probed), so a copy of this script and of
@@ -121,6 +140,9 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SCENE_PRNS = [25, 28, 31, 32]
 TRUTH_LLA = (51.5, -0.1, 80.0)
 GPS_T0 = 21600.0
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -1057,15 +1079,19 @@ def synthesize_named(name: str) -> np.ndarray:
     the GPS scene at 2.046 and 8.184 Msps; the GLONASS-only scene of
     tests/test_glonass_receiver.py (13 s; at 8.184 Msps cut to 11 s, its
     first fix lands at 9 s); the GPS + GLONASS pair of that file's
-    dual-band test (24 s, k = -2, 0, 2); and the iono-loaded L1OF + L2OF
-    pair of tests/test_dualfreq.py (16 s)."""
+    dual-band test (24 s, k = -2, 0, 2); the iono-loaded L1OF + L2OF
+    pair of tests/test_dualfreq.py (16 s); and the 38 s deep-fade scene of
+    tests/test_deepcoast.py:181-198 (PRNs 25/28/31/32/3 faded to 0.03 over
+    23-33 s, clock drift 2e-8, noise 0.35)."""
     from gypsum_tpu_torch.signal.constellation import synthesize_constellation
     from gypsum_tpu_torch.signal.scenarios import (
+        DEMO_GPS_START_SOW,
         demo_constellation,
         demo_glonass_constellation,
         demo_iono_page18,
         demo_receiver_ecef,
     )
+    from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
     from gypsum_tpu_torch.solve.iono import IonoUtcParams
 
     if name in ("gps", "gps_8x"):
@@ -1082,6 +1108,12 @@ def synthesize_named(name: str) -> np.ndarray:
     if name == "dual_glonass":
         return synthesize_constellation(demo_glonass_constellation([-2, 0, 2]), rx,
                                         GLO_START_SOW, 24.0, FS_GLO, **glo)[0]
+    if name == "fade":
+        sats = demo_constellation(FADE_PRNS)
+        for sat in sats:
+            sat.faded_s = [(DEEP_FADE[0], DEEP_FADE[1], 0.03)]
+        return synthesize_constellation(sats, lla_to_ecef(*TRUTH_LLA), DEMO_GPS_START_SOW, 38.0,
+                                        FS, noise_sigma=0.35, receiver_clock_drift=2e-8)[0]
     if name in ("iono_l1", "iono_l2"):
         iono = IonoUtcParams.from_page(demo_iono_page18())
         return synthesize_constellation(demo_glonass_constellation(GLO_KS), rx, GLO_START_SOW,
@@ -1300,8 +1332,8 @@ def run_glonass_receiver(iq: np.ndarray, dev, peak_kernel: bool = False, **track
     return recv, acq, errs, wall
 
 
-def run_cli_here(*argv: str) -> tuple[str, float]:
-    """``python -m gypsum_tpu_torch replay ...`` run in this process (the
+def run_cli_here(*argv: str, command: str = "replay") -> tuple[str, float]:
+    """``python -m gypsum_tpu_torch <command> ...`` run in this process (the
     CLI's own ``main``), so that the kernels' launch counts see it.
     Returns (its standard output, wall s)."""
     import contextlib
@@ -1314,12 +1346,12 @@ def run_cli_here(*argv: str) -> tuple[str, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli_main(["replay", *argv])
+        rc = cli_main([command, *argv])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     logging.getLogger().setLevel(logging.WARNING)  # the CLI turned on INFO for its run
     if rc != 0:
-        raise AssertionError(f"CLI replay {' '.join(argv)} returned {rc}:\n{out.getvalue()[-3000:]}")
+        raise AssertionError(f"CLI {command} {' '.join(argv)} returned {rc}:\n{out.getvalue()[-3000:]}")
     return out.getvalue(), wall
 
 
@@ -1506,6 +1538,448 @@ def profile_run(make_receiver) -> None:
         log(f"profile:   {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+# ------------------------------------ deep search, deep coast, checkpoints
+
+
+DEEP_FADE = (23.0, 33.0)  # tests/test_deepcoast.py: PRNs faded to 0.03 over 23-33 s
+FADE_PRNS = [25, 28, 31, 32, 3]
+# The JAX receiver with pipeline_tracking=True (the card's and the TPU's
+# default; tests/test_deepcoast.py runs unpipelined, on the CPU backend) on
+# the fade scene: its in-fade lsq fix errors (m) by epoch, and the 6 of its
+# 17 protection levels that do not bound them. A fault of the reference,
+# shared by the port (ROADMAP.md §C), checked on the CPU by
+# tests/test_torch_deepcoast.py::test_pipelined_fade_reference_of_chip_smoke.
+FADE_PIPELINED_REFERENCE = {28.0: 192.14, 29.0: 152.32, 30.0: 129.11, 31.0: 108.19,
+                            32.0: 93.86, 33.0: 83.06}
+FADE_PIPELINED_PL_MISSES = 6
+# The snapshot phase's priors: ~40 km and 4 s off (tests/test_snapshot.py:80-113).
+SNAPSHOT_OFFSET_M = (-30e3, 20e3, 15e3)
+SNAPSHOT_DT_S = 4.0
+# With the fade replay's 5 orbits the snapshot solve is exactly determined
+# (residual 0): the JAX CLI, on the same capture with a JAX checkpoint of the
+# same replay and these priors, prints this fix, 536 m from truth (outside
+# tests/test_snapshot.py's 400 m bar, which it holds on 8 satellites; no
+# priors do better). The card is held to it:
+# tests/test_torch_deepcoast.py::test_fade_snapshot_reference_of_chip_smoke
+# checks this value against the JAX CLI on the CPU.
+SNAPSHOT_REFERENCE = (51.496925, -0.094137, 10.0)
+
+
+def deep_scene():
+    """The default deep search's input: the eight demo satellites from the
+    demo start time, 250 ms at 2.046 Msps (host numpy), and their truth."""
+    from gypsum_tpu_torch.signal.constellation import synthesize_constellation
+    from gypsum_tpu_torch.signal.scenarios import (
+        DEMO_GPS_START_SOW,
+        DEMO_PRNS_8,
+        demo_constellation,
+        demo_receiver_ecef,
+    )
+
+    return synthesize_constellation(demo_constellation(DEMO_PRNS_8), demo_receiver_ecef(),
+                                    DEMO_GPS_START_SOW, 0.25, FS, noise_sigma=0.35, seed=4)
+
+
+def check_peak_reduce_deep(dev, iq, truth) -> dict:
+    """K2 at the deep sweep's shape: the [32 PRNs x 8 Doppler bins, 2046]
+    accumulator of a default 200 ms search (acquire/deep.py), the chunk that
+    holds PRN 25's Doppler; max and argmax exact, the sum within 1e-6 of the
+    largest row sum, two runs equal to the bit."""
+    from gypsum_tpu_torch.acquire.deep import DeepAcquisitionEngine
+    from gypsum_tpu_torch.ops.peak_reduce import peak_reduce_cuda, peak_reduce_reference
+
+    eng = DeepAcquisitionEngine(FS, L, device=dev)
+    x = torch.from_numpy(np.ascontiguousarray(iq[: 200 * L].reshape(200, L))).to(dev)
+    c = eng.config.doppler_chunk
+    start = int(np.argmin(np.abs(eng.dopplers - truth.doppler_hz[25]))) // c * c
+    chunk = eng.dopplers[start:start + c]
+    acc = eng.accumulate(x, torch.from_numpy(chunk).to(dev),
+                         torch.from_numpy(eng._roll_indices(chunk).astype(np.int64)).to(dev))
+    grid = acc.reshape(-1, L).contiguous()
+    if grid.shape != (256, 2046):
+        raise AssertionError(f"unexpected deep accumulator shape {tuple(grid.shape)}")
+    mk, ak, sk = peak_reduce_cuda(grid)
+    mk2, ak2, sk2 = peak_reduce_cuda(grid)
+    mp, ap, sp = peak_reduce_reference(grid)
+    torch.cuda.synchronize()
+    if not (torch.equal(mk, mp) and torch.equal(ak, ap)):
+        raise AssertionError("K2 max/argmax differ on the deep accumulator")
+    if not (torch.equal(mk, mk2) and torch.equal(ak, ak2) and torch.equal(sk, sk2)):
+        raise AssertionError("K2 gave two answers on the deep accumulator")
+    scale = float(sp.abs().max())
+    worst = float((sk - sp).abs().max())
+    # Sum: 1e-6 of the largest row sum (float32 sums of 2046 positive terms
+    # in another order).
+    if worst > 1e-6 * scale:
+        raise AssertionError(f"K2 sum on the deep accumulator off by {worst:.3g} of {scale:.3g}")
+    row = 8 * eng.prns.index(25) + int(np.argmin(np.abs(chunk - truth.doppler_hz[25])))
+    rows, n = grid.shape
+    bound_ms, bound_by = bound(4 * rows * n + 12 * rows, 2 * rows * n)
+    log(f"K2 peak reduce on the deep accumulator [256, 2046] (200 ms, bins {chunk[0]:+.0f}.."
+        f"{chunk[-1]:+.0f} Hz): argmax/max exact, two runs equal, sum max |err| {worst:.3g} of "
+        f"{scale:.4g}; PRN 25's row peaks at code phase {int(ak[row])} (truth "
+        f"{truth.code_phase_samples[25]:.2f}); bound {bound_ms:.5f} ms ({bound_by})")
+    times = two_way({
+        "plain": (lambda: peak_reduce_reference(grid), 200, 2),
+        "kernel": (lambda: peak_reduce_cuda(grid), 200, 2),
+        "library": (lambda: (torch.max(grid, dim=1), grid.sum(dim=1)), 200, 2),
+        "empty": (lambda: EMPTY_KERNEL.launch(32, 256), 200, 2),
+    })
+    return {
+        "name": "K2 peak_reduce, deep sweep [256, 2046]",
+        "route": "cuda",
+        "source": "gypsum_tpu_torch/csrc/peak_reduce.cu",
+        "replaces": "gypsum_tpu/ops/pallas_kernels.py:194",
+        "max_abs_err": worst,
+        **timing_keys(times),
+        "empty_ms": times["empty"][0],
+        "empty_issue_ms": times["empty"][1],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
+def deep_split(eng, x) -> tuple[dict, dict]:
+    """One default deep search's sweep, stage by stage: the Doppler
+    wipeoff, the forward FFTs, the group sums, the product with the replica
+    FFTs, the inverse FFTs, |.| + roll gather + group accumulation, and K2.
+    Returns (ms per stage between CUDA events around each stage, summed over
+    the chunks: the device's timeline, the host's issue gaps included;
+    ms per stage of one chunk alone, its calls replayed from a CUDA graph,
+    ``device_ms``, times the chunk count). The stages are
+    acquire/deep.py:DeepAcquisitionEngine.accumulate's, held equal to it to
+    the bit on the first chunk."""
+    from gypsum_tpu_torch.ops.correlate import doppler_wipeoff
+    from gypsum_tpu_torch.ops.peak_reduce import peak_reduce
+
+    cfg = eng.config
+    c = cfg.doppler_chunk
+    n_chunks = -(-len(eng.dopplers) // c)
+    s_count = eng._prn_fft_conj.shape[0]
+    events, device, out = {}, {}, {}
+    for start in range(0, len(eng.dopplers), c):
+        chunk = eng.dopplers[start:start + c]
+        chunk = np.concatenate([chunk, np.repeat(chunk[-1:], c - len(chunk))])
+        d = torch.from_numpy(chunk).to(x.device)
+        roll = torch.from_numpy(eng._roll_indices(chunk).astype(np.int64)).to(x.device)
+        idx = roll.permute(1, 0, 2)[None].expand(s_count, -1, -1, -1)
+        # Each stage reads the one before it from ``out``.
+        steps = [
+            ("wipeoff", lambda: doppler_wipeoff(x, d, eng.sample_rate)),
+            ("fft", lambda: torch.fft.fft(out["wipeoff"], dim=-1)),
+            ("group sum", lambda: out["fft"].reshape(c, eng.n_groups, cfg.coherent_ms, L).sum(dim=2)),
+            ("product", lambda: out["group sum"][None] * eng._prn_fft_conj[:, None, None, :]),
+            ("ifft", lambda: torch.fft.ifft(out["product"], dim=-1)),
+            ("abs+gather+sum", lambda: torch.gather(out["ifft"].abs(), -1, idx).sum(dim=2)),
+            ("K2", lambda: peak_reduce(out["abs+gather+sum"].reshape(-1, L))),
+        ]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+        ev[0].record()
+        for i, (name, step) in enumerate(steps):
+            out[name] = step()
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        for i, (name, _) in enumerate(steps):
+            events[name] = events.get(name, 0.0) + ev[i].elapsed_time(ev[i + 1])
+        if start == 0:
+            if not torch.equal(out["abs+gather+sum"], eng.accumulate(x, d, roll)):
+                raise AssertionError("the timed stages do not compute the engine's accumulator")
+            device = {name: n_chunks * device_ms(step, 5) for name, step in steps}
+    return events, device
+
+
+def run_deep_searches(dev, scenes: "Scenes", k2d: dict) -> None:
+    """Deep acquisition on the card, K2's launches counted around each
+    search: the weak PRN 7 scene of tests/test_deep_acquire.py (400 ms, 4 kHz
+    span; the 10 ms engine blind, the deep engine on code phase 512 within
+    5 Hz, PRN 3 below the threshold); a default 200 ms search over all 32
+    PRNs on the eight demo satellites, timed per search, per chunk and by
+    stage; deep_acquire_glonass on the GLONASS-only scene, its on-air
+    channels on the 10 ms FDMA engine's code phases."""
+    from gypsum_tpu_torch.acquire.deep import DeepAcquisitionEngine, deep_acquire_glonass
+    from gypsum_tpu_torch.acquire.engine import AcquisitionEngine
+    from gypsum_tpu_torch.core.config import AcquisitionConfig, DeepAcquisitionConfig
+    from gypsum_tpu_torch.signal.prn import GLONASS_PRN_IDS, glonass_frequency_number
+    from gypsum_tpu_torch.signal.synth import SyntheticSatellite, synthesize_iq
+
+    sats = [SyntheticSatellite(prn=7, doppler_hz=1743.0, delay_samples=512, amplitude=0.012)]
+    weak = synthesize_iq(sats, 400 * L, FS, noise_sigma=0.3, seed=5).reshape(400, L)
+    std = AcquisitionEngine(FS, L, AcquisitionConfig(correlator="fft"), prns=(7, 3), device=dev)
+    std7 = {r.prn: r for r in std.acquire_all(weak[:10])}[7].strength
+    if std7 >= 3.0:
+        raise AssertionError(f"the 10 ms engine sees the weak PRN 7 (strength {std7:.2f})")
+    deep = DeepAcquisitionEngine(FS, L, DeepAcquisitionConfig(total_ms=400, doppler_span_hz=4000.0),
+                                 prns=(7, 3), device=dev)
+    reset_launches()
+    hits = {r.prn: r for r in deep.acquire_all(weak)}
+    n = launches()
+    chunks = -(-len(deep.dopplers) // deep.config.doppler_chunk)
+    h7, h3 = hits[7], hits[3]
+    if n["K2"] != chunks:
+        raise AssertionError(f"the weak deep search of {chunks} chunks launched {n}")
+    if (h7.code_phase_samples != 512 or abs(h7.doppler_hz - 1743.0) >= 5.0
+            or h7.strength <= deep.detection_threshold or h3.strength >= deep.detection_threshold):
+        raise AssertionError(f"weak deep search: PRN 7 {h7}, PRN 3 {h3}, threshold "
+                             f"{deep.detection_threshold:.3f}")
+    log(f"deep search, weak PRN 7 (amplitude 0.012, 400 ms, +/-4 kHz): the 10 ms engine blind "
+        f"(strength {std7:.2f} < 3.0); deep: code phase {h7.code_phase_samples}, Doppler "
+        f"{h7.doppler_hz:.2f} Hz (truth 1743), strength {h7.strength:.2f}; PRN 3 "
+        f"{h3.strength:.2f} < threshold {deep.detection_threshold:.3f}; launches {n}")
+
+    iq, truth = deep_scene()
+    eng = DeepAcquisitionEngine(FS, L, device=dev)
+    x = torch.from_numpy(np.ascontiguousarray(iq[: 200 * L].reshape(200, L))).to(dev)
+    eng.acquire_all(x)  # cuFFT plans and the first allocations
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.acquire_all(x)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    n = launches()
+    chunks = -(-len(eng.dopplers) // eng.config.doppler_chunk)
+    k2d["launches"] = n["K2"]
+    if n["K2"] != chunks:
+        raise AssertionError(f"the default deep search of {chunks} chunks launched {n}")
+    found = {r.prn: r for r in res if r.strength > eng.detection_threshold}
+    for prn, cp in truth.code_phase_samples.items():
+        r = found.get(prn)
+        if r is None or abs((r.code_phase_samples - cp + L / 2) % L - L / 2) > 1.0:
+            raise AssertionError(f"default deep search: PRN {prn} {r} (truth code phase {cp:.2f})")
+    events, device = deep_split(eng, x)
+
+    def shares(split):
+        total = sum(split.values())
+        fft_ms = split["fft"] + split["ifft"]
+        return (f"{total:.2f} ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"; FFTs {fft_ms:.3f} ms ({100 * fft_ms / total:.1f} %)")
+
+    log(f"deep search, default (200 ms, 10 ms groups, +/-7 kHz / 50 Hz: {len(eng.dopplers)} bins "
+        f"in {chunks} chunks of 8, 32 PRNs): the 8 satellites on the air found on their code "
+        f"phases; {wall_ms:.2f} ms per search (host clock, synchronized), {wall_ms / chunks:.3f} "
+        f"ms per chunk; launches {n}; the sweep by stage, between events (the device's "
+        f"timeline, the host's issue gaps in it) {shares(events)}; by stage, device alone "
+        f"(CUDA graph, x {chunks} chunks) {shares(device)}")
+
+    glo = scenes.get("glonass")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deep_glo = {r.prn: r for r in deep_acquire_glonass(glo[: 200 * L_GLO], FS_GLO, L_GLO,
+                                                        device=dev)}
+    wall_glo = time.perf_counter() - t0
+    n = launches()
+    k2d["launches_glonass_search"] = n["K2"]
+    if n["K2"] != len(GLONASS_PRN_IDS) * chunks:
+        raise AssertionError(f"the GLONASS deep search launched {n}")
+    spacing = glonass_band("l1")[1]
+    fdma = AcquisitionEngine(FS_GLO, L_GLO, prns=GLONASS_PRN_IDS, device=dev,
+                             center_offsets_hz=tuple(glonass_frequency_number(p) * spacing
+                                                     for p in GLONASS_PRN_IDS))
+    std_glo = {r.prn: r for r in fdma.acquire_all(glo[: 10 * L_GLO].reshape(10, L_GLO))}
+    threshold = 1.0 + DeepAcquisitionConfig().detection_k / np.sqrt(20)
+    for prn in GLO_PRNS:
+        a, b = deep_glo[prn], std_glo[prn]
+        if (a.strength <= threshold or b.strength <= 3.0
+                or abs((a.code_phase_samples - b.code_phase_samples + L_GLO / 2) % L_GLO
+                       - L_GLO / 2) > 1):
+            raise AssertionError(f"GLONASS deep {a} against the 10 ms FDMA engine {b}")
+    log(f"deep search, GLONASS (deep_acquire_glonass, 14 channels x 200 ms, f64 pre-rotation): "
+        f"the {len(GLO_PRNS)} channels on the air on the 10 ms FDMA engine's code phases "
+        f"({', '.join(f'{p}: {deep_glo[p].code_phase_samples}' for p in GLO_PRNS)}); "
+        f"{wall_glo:.2f} s wall; launches {n}")
+
+
+def fade_config(**tracking):
+    """The TrackingConfig of tests/test_deepcoast.py:_run on the default
+    ReceiverConfig (coast_deep_measurement stays at its default, True),
+    with ``tracking`` fields set on it."""
+    from gypsum_tpu_torch.core.config import ReceiverConfig, TrackingConfig
+
+    return ReceiverConfig(tracking=TrackingConfig(
+        watchdog_warmup_ms=1500, quality_drop_threshold=0.25, coast_max_s=6.0, **tracking))
+
+
+def fade_fix_errors(recv) -> tuple[dict, int, int]:
+    """({epoch: error m} of the in-fade lsq fixes, lsq fixes with protection
+    levels, how many of those levels do not bound their error)."""
+    from gypsum_tpu_torch.solve.geodesy import enu_basis, lla_to_ecef
+
+    rx = lla_to_ecef(*TRUTH_LLA)
+    enu = enu_basis(rx)
+    in_fade = {round(f.receiver_timestamp, 1): float(np.linalg.norm(f.ecef - rx))
+               for f in recv.world.position_fixes
+               if DEEP_FADE[0] + 5.0 <= f.receiver_timestamp <= DEEP_FADE[1] and f.kind == "lsq"}
+    checked = misses = 0
+    for f in recv.world.position_fixes:
+        if f.kind != "lsq" or f.protection is None:
+            continue
+        e = enu @ (np.asarray(f.ecef) - rx)
+        checked += 1
+        misses += bool(np.hypot(e[0], e[1]) > f.protection["hpl_m"]
+                       or abs(e[2]) > f.protection["vpl_m"])
+    return in_fade, checked, misses
+
+
+def run_fade_replay(dev, iq: np.ndarray, pipelined: bool):
+    """The 38 s deep-fade scene through the default Receiver with the fade
+    test's tracking config. Unpipelined (as tests/test_deepcoast.py ran on
+    the JAX CPU backend), held to that test's bars: every PRN deep-measured
+    and none dropped; >= 4 lsq fixes in [28, 33] s, max error < 50 m, median
+    < 25 m; recovery within 3 s of the fade's end, post-fade fixes < 5 m;
+    every published protection level bounding its error. Pipelined (the
+    card's default), held to the JAX receiver pipelined: the same measured,
+    dropped and recovered PRNs and post-fade bar, its in-fade errors within
+    1 m of FADE_PIPELINED_REFERENCE and as many protection levels missed.
+    Returns the receiver."""
+    from gypsum_tpu_torch.io.sources import ArraySampleSource
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+    from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
+    from gypsum_tpu_torch.track.deepmeas import DeepCoastMeasurer
+
+    rx = lla_to_ecef(*TRUTH_LLA)
+    recv = Receiver(ArraySampleSource(iq, FS), fade_config(pipeline_tracking=pipelined),
+                    device=dev)
+    if not recv.config.tracking.coast_deep_measurement or recv._pipeline_depth != int(pipelined):
+        raise AssertionError("the fade replay must run the default deep measurement")
+    # The receiver builds this measurer lazily; built here, its calls are timed.
+    meas = DeepCoastMeasurer(FS, L, recv.bank.prns, recv.bank.config, device=dev)
+    measure, meas_s = meas.measure, []
+
+    def timed_measure(*args, **kw):
+        t = time.perf_counter()
+        out = measure(*args, **kw)
+        meas_s.append(time.perf_counter() - t)
+        return out
+
+    meas.measure = timed_measure
+    recv._coast_measurer = meas
+    reset_launches()
+    wall = timed_run(recv)
+    n = launches()
+    if n["K1"] == 0:
+        raise AssertionError(f"the fade replay launched {n}")
+    name = "pipelined" if pipelined else "unpipelined"
+    reports = recv.block_reports
+    measured = {p for r in reports for p in r.deep_measured_prns}
+    dropped = [(r.block_start, p) for r in reports for p in r.dropped_prns]
+    if measured != set(FADE_PRNS) or dropped:
+        raise AssertionError(f"{name} fade replay: deep-measured {sorted(measured)}, dropped {dropped}")
+    recovered = [(r.block_start, p) for r in reports for p in r.coast_recovered_prns]
+    if not recovered or not all(DEEP_FADE[1] <= t <= DEEP_FADE[1] + 3.0 for t, _ in recovered):
+        raise AssertionError(f"{name} fade replay: recoveries {recovered}")
+    post = [float(np.linalg.norm(f.ecef - rx)) for f in recv.world.position_fixes
+            if f.receiver_timestamp >= DEEP_FADE[1] + 3.0 and f.kind == "lsq"]
+    if not post or max(post) >= 5.0:
+        raise AssertionError(f"{name} fade replay: post-fade fix errors {post}")
+    in_fade, checked, misses = fade_fix_errors(recv)
+    errs = list(in_fade.values())
+    if pipelined:
+        # bf16 phase 1 here against float32 on the CPU: 1 m.
+        if (set(in_fade) != set(FADE_PIPELINED_REFERENCE) or misses != FADE_PIPELINED_PL_MISSES
+                or max(abs(in_fade[t] - e) for t, e in FADE_PIPELINED_REFERENCE.items()) >= 1.0):
+            raise AssertionError(f"pipelined fade replay: in-fade errors {in_fade}, {misses} "
+                                 f"protection levels missed; the JAX receiver "
+                                 f"{FADE_PIPELINED_REFERENCE}, {FADE_PIPELINED_PL_MISSES}")
+    elif (len(errs) < 4 or max(errs) >= 50.0 or float(np.median(errs)) >= 25.0 or misses
+            or checked < 10):
+        raise AssertionError(f"fade replay: in-fade lsq fix errors {in_fade}; {misses} of "
+                             f"{checked} protection levels do not bound their errors")
+    ms = 1e3 * np.asarray(meas_s)
+    log(f"e2e deep-fade Receiver(device='cuda', {name}), 38 s, PRNs {FADE_PRNS} faded to 0.03 "
+        f"over {DEEP_FADE[0]:.0f}-{DEEP_FADE[1]:.0f} s: all {len(measured)} deep-measured, none "
+        f"dropped; in-fade lsq fix errors "
+        + ", ".join(f"{t:.0f} s {e:.2f} m" for t, e in sorted(in_fade.items()))
+        + f" (max {max(errs):.2f}, median {np.median(errs):.2f}); recovered at "
+        f"{sorted({t for t, _ in recovered})} s; post-fade max {max(post):.2f} m; "
+        f"{checked - misses} of {checked} protection levels bound their errors; measurer "
+        f"{meas.calls} calls, {ms.mean():.2f} ms per call (median {np.median(ms):.2f}, "
+        f"{ms.sum():.0f} ms in all, {100 * ms.sum() / (1e3 * wall):.1f} % of the wall); "
+        f"{wall:.2f} s wall; launches {n}; {recv.collect}")
+    return recv
+
+
+def run_checkpoints(dev, scenes: "Scenes", fade_recv, uninterrupted: list) -> None:
+    """Checkpoints and the new CLI paths on the card: the fade replay's
+    receiver saved and loaded (timed); ``acquire --deep --snapshot`` on the
+    fade capture with that checkpoint's orbits and priors ~40 km and 4 s
+    off (the JAX CLI's SNAPSHOT FIX, ``SNAPSHOT_REFERENCE``); the 23 s GPS scene replayed with
+    ``--duration 12 --checkpoint``, then again from the checkpoint, each
+    resumed fix within 1 m of the uninterrupted run's at the same epoch
+    (``uninterrupted``: (epoch s, ECEF) of the default replay's fixes)."""
+    from gypsum_tpu_torch.io.sources import ArraySampleSource
+    from gypsum_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+    from gypsum_tpu_torch.signal.scenarios import DEMO_GPS_START_SOW
+    from gypsum_tpu_torch.solve.geodesy import ecef_to_lla, lla_to_ecef
+
+    rx = lla_to_ecef(*TRUTH_LLA)
+    work = Path(tempfile.mkdtemp(prefix="ckpt", dir=scenes.directory))
+    ckpt = work / "fade.ckpt.gz"
+    t0 = time.perf_counter()
+    save_checkpoint(fade_recv, ckpt)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    fresh = Receiver(ArraySampleSource(np.zeros(20 * L, np.complex64), FS), fade_config(),
+                     device=dev)
+    t0 = time.perf_counter()
+    at = load_checkpoint(fresh, ckpt)
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    orbits = sorted(p for p, rec in fresh.world._sats.items() if rec.has_orbit)
+    if abs(at - fade_recv.stream_position_s) > 1e-9 or orbits != sorted(FADE_PRNS):
+        raise AssertionError(f"checkpoint reloaded at {at} s with orbits {orbits}")
+    log(f"checkpoint: the fade replay's receiver saved in {save_ms:.1f} ms "
+        f"({ckpt.stat().st_size / 1e3:.0f} kB) and loaded in {load_ms:.1f} ms, at "
+        f"{at:.1f} s with the orbits of {orbits}")
+
+    lat, lon, alt = ecef_to_lla(rx + np.array(SNAPSHOT_OFFSET_M))
+    reset_launches()
+    out, wall = run_cli_here(
+        "--file", str(scenes.path("fade")), "--deep", "--snapshot", "--checkpoint", str(ckpt),
+        "--assume-lla", f"{lat},{lon},{alt}", "--assume-tow",
+        str(DEMO_GPS_START_SOW + SNAPSHOT_DT_S), command="acquire")
+    n = launches()
+    m = re.search(r"SNAPSHOT FIX lat=(-?[\d.]+) lon=(-?[\d.]+) alt=(-?\d+)m.*", out)
+    if m is None or n["K2"] != 36:
+        raise AssertionError(f"acquire --deep --snapshot: launches {n}:\n{out[-2000:]}")
+    got = [float(v) for v in m.groups()]
+    err = float(np.linalg.norm(lla_to_ecef(*got) - rx))
+    # The FIX line prints 6 decimals of a degree and whole metres: one unit
+    # of the last printed digit of slack.
+    if (max(abs(got[0] - SNAPSHOT_REFERENCE[0]), abs(got[1] - SNAPSHOT_REFERENCE[1])) > 1.5e-6
+            or abs(got[2] - SNAPSHOT_REFERENCE[2]) > 1.0):
+        raise AssertionError(f"SNAPSHOT FIX {got}, the JAX CLI's {SNAPSHOT_REFERENCE}")
+    log(f"e2e CLI acquire --deep --snapshot --checkpoint (priors "
+        f"{np.linalg.norm(SNAPSHOT_OFFSET_M) / 1e3:.0f} km, {SNAPSHOT_DT_S:.0f} s off): "
+        f"{m.group(0)}; the JAX CLI's fix, {err:.1f} m from truth; {wall:.2f} s wall; "
+        f"launches {n}")
+
+    gps_ckpt = work / "gps.ckpt.gz"
+    first, wall1 = run_cli_here("--file", str(scenes.path("gps")), "--duration", "12",
+                                "--checkpoint", str(gps_ckpt))
+    reset_launches()
+    second, wall2 = run_cli_here("--file", str(scenes.path("gps")), "--checkpoint",
+                                 str(gps_ckpt))
+    n = launches()
+    reacquired = re.findall(r"acquired PRN (\d+)", second)
+    if any(int(p) in SCENE_PRNS for p in reacquired) or n["K1"] == 0:
+        raise AssertionError(f"resumed replay re-acquired {reacquired}, launches {n}")
+    want = dict(uninterrupted)
+    pairs = []
+    for t, lat, lon, alt in re.findall(
+            r"\[\s*([\d.]+)s\] FIX lat=(-?[\d.]+) lon=(-?[\d.]+) alt=(-?\d+)m", second):
+        if float(t) in want:
+            ecef = lla_to_ecef(float(lat), float(lon), float(alt))
+            pairs.append((float(t), float(np.linalg.norm(ecef - want[float(t)]))))
+    # The FIX line prints 6 decimals of a degree (~0.1 m) and whole metres of
+    # altitude: 1 m holds that rounding.
+    if not pairs or max(d for _, d in pairs) >= 1.0:
+        raise AssertionError(f"resumed fixes against the uninterrupted run: {pairs}\n{second[-2000:]}")
+    log(f"e2e CLI replay --duration 12 --checkpoint ({wall1:.2f} s wall), then resumed from the "
+        f"checkpoint ({wall2:.2f} s wall): {len(pairs)} fixes at the uninterrupted run's epochs "
+        f"{[t for t, _ in pairs]}, max {max(d for _, d in pairs):.3f} m from them; no scene PRN "
+        f"re-acquired; launches {n}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -1532,7 +2006,7 @@ def main() -> int:
 
 
 # The replays' scenes (``synthesize_named``), in the order they are needed.
-SCENE_NAMES = ["gps", "gps_8x", "glonass", "glonass_8x", "dual_gps", "dual_glonass",
+SCENE_NAMES = ["gps", "gps_8x", "fade", "glonass", "glonass_8x", "dual_gps", "dual_glonass",
                "iono_l1", "iono_l2"]
 
 
@@ -1571,6 +2045,14 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
             glonass_blocks.update(l1=glonass_block("l1", dev), l2=glonass_block("l2", dev))
         return glonass_blocks
 
+    deep_cache = []
+
+    def deep_inputs():
+        """The default deep search's scene, synthesized at first use."""
+        if not deep_cache:
+            deep_cache.extend(deep_scene())
+        return deep_cache
+
     checks = {
         "K1": lambda: check_fixup(dev, sats, samples),
         "K2": lambda: check_peak_reduce(dev),
@@ -1581,6 +2063,7 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
         "K2G": lambda: check_peak_reduce_glonass(dev, glonass()["l1"][2]),
         "K4G": lambda: check_wipeoff_lag_glonass(dev, glonass()),
         "K5G": lambda: check_fir_decimate_glonass(dev),
+        "K2D": lambda: check_peak_reduce_deep(dev, *deep_inputs()),
     }
     if only is not None:
         # A short run for work on a kernel: the checks of the kernels named
@@ -1701,12 +2184,26 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
         f"output + K1) {track_ms:.3f} ms; one 10 ms acquisition sweep {acq_ms:.3f} ms")
 
     profile_run(lambda: Receiver(ArraySampleSource(iq, FS), ReceiverConfig(), device=dev))
+    uninterrupted = [(round(r.block_end, 1), r.fix.ecef) for r in recv.block_reports
+                     if r.fix is not None]
     del iq, recv
 
     # The GLONASS bands: the K1, K2, K4 and K5 entries at GLONASS inputs get
     # their launches from these replays.
     run_glonass_replays(dev, scenes, *(entries[k] for k in ("K1G", "K2G", "K4G", "K5G")))
 
+    # Deep acquisition (K2 D gets its launches here), the deep-fade replay
+    # through the coast tier's deep measurement, and checkpoints.
+    run_deep_searches(dev, scenes, entries["K2D"])
+    fade_iq = scenes.get("fade")
+    fade_recv = run_fade_replay(dev, fade_iq, pipelined=False)
+    run_fade_replay(dev, fade_iq, pipelined=True)
+    run_checkpoints(dev, scenes, fade_recv, uninterrupted)
+    profile_run(lambda: Receiver(ArraySampleSource(fade_iq, FS),
+                                 fade_config(pipeline_tracking=False), device=dev))
+    del fade_iq, fade_recv
+
+    log(f"total: {time.perf_counter() - T_START:.1f} s since the script started")
     log(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({
         "ok": True,

@@ -5,10 +5,14 @@ Usage:
     python -m gypsum_tpu_torch replay --glonass-file r.npy --until-fix
     python -m gypsum_tpu_torch replay --file g.npy --glonass-file r.npy
     python -m gypsum_tpu_torch replay --glonass-file l1.npy --glonass-l2-file l2.npy
+    python -m gypsum_tpu_torch replay --file capture.npy --duration 12 --checkpoint run.ckpt
+    python -m gypsum_tpu_torch acquire --file capture.npy [--deep [--deep-ms 200]]
+    python -m gypsum_tpu_torch acquire --file capture.npy --deep --snapshot \
+        --checkpoint run.ckpt --assume-lla 51.5,-0.1,80 --assume-tow 21604
 
-The JAX CLI's other sub-commands (synth, acquire, rtk, bench) and the
-replay flags for checkpoints, RINEX/NMEA export, the web UI, assisted
-start, notch and beamform are not ported yet (ROADMAP.md). Captures at
+The JAX CLI's other sub-commands (synth, rtk, bench) and the replay flags
+for RINEX/NMEA export, the web UI, assisted start, notch and beamform are
+not ported yet (ROADMAP.md). Captures at
 other rates than the band's processing rate (2.046 Msps GPS, 4.092 Msps
 GLONASS) go through the decimating front end (``--sample-rate``,
 ``--glonass-rate``, ``--format`` or the sidecar).
@@ -20,6 +24,7 @@ import argparse
 import logging
 import sys
 
+from gypsum_tpu_torch.cli.acquire import cmd_acquire
 from gypsum_tpu_torch.cli.replay import cmd_replay
 from gypsum_tpu_torch.cli.sources import _add_file_source_args
 
@@ -62,7 +67,37 @@ def main(argv=None) -> int:
                    "decoded; the per-SV L2-L1 code-delay difference is the "
                    "MEASURED ionospheric correction (requires "
                    "--glonass-file)")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file: resumed from if it exists, written on exit "
+                   "(either package's checkpoints load; the reference always "
+                   "cold-starts)")
     p.set_defaults(fn=cmd_replay)
+
+    p = sub.add_parser("acquire", help="one-shot acquisition report over 10 ms")
+    p.add_argument("--glonass-file", default=None, metavar="PATH",
+                   help="acquire over a GLONASS L1OF band capture instead "
+                   "(FDMA sub-band sweep; with --deep, the per-channel "
+                   "f64-rotated deep search)")
+    p.add_argument("--glonass-rate", type=float, default=None,
+                   help="GLONASS capture sample rate (else sidecar; 4.092e6 for .npy)")
+    p.add_argument("--deep", action="store_true",
+                   help="high-sensitivity search: grouped coherent x "
+                        "non-coherent integration over --deep-ms (~7-10 dB "
+                        "below the 10 ms engine; pairs well with --snapshot)")
+    p.add_argument("--deep-ms", type=int, default=200,
+                   help="milliseconds integrated in --deep mode")
+    p.add_argument("--snapshot", action="store_true",
+                   help="coarse-time fix from this acquisition alone "
+                        "(orbits from --checkpoint, priors from --assume-*)")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file holding decoded orbits (for --snapshot); "
+                   "written by either package")
+    p.add_argument("--assume-lla", default=None, metavar="LAT,LON,ALT",
+                   help="coarse position prior, ~100 km basin")
+    p.add_argument("--assume-tow", type=float, default=None,
+                   help="coarse GPS time prior (seconds of week, ~1 min basin)")
+    _add_file_source_args(p)
+    p.set_defaults(fn=cmd_acquire)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,11 +1,13 @@
 """``replay`` subcommand: the full receiver over a capture (reference
 parity: gypsum-cli.py's only mode), plus the GLONASS and multi-band replays
-the reference lacks.
+and the checkpoints the reference lacks.
 
 Port of gypsum_tpu/cli/replay.py: GPS L1 C/A (``--file``), GLONASS only
 (``--glonass-file``), GPS + GLONASS (both: the fix solves the inter-system
 bias) and GLONASS L1OF + L2OF (``--glonass-file --glonass-l2-file``: the
-measured ionosphere). Its narration lines (acquisitions, drops, coasting,
+measured ionosphere); ``--checkpoint`` resumes from the file if it exists
+(written by either package) and writes it on exit, single- and dual-band.
+Its narration lines (acquisitions, drops, coasting, deep-integration ranging,
 subframes, SBAS MT9, GLONASS strings 1-4 and the ``FIX lat=... lon=...``
 lines) are the JAX CLI's.
 """
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import pathlib
 
 import numpy as np
 
@@ -31,8 +34,13 @@ def narrate(recv, report) -> None:
     for prn in report.dropped_prns:
         print(f"[{report.block_start:8.1f}s] dropped PRN {prn} (lost lock)")
     for prn in report.coasting_prns:
-        print(f"[{report.block_start:8.1f}s] PRN {prn} coasting open-loop "
-              f"(signal lost; NCOs held by predicted geometry)")
+        if prn in report.deep_measured_prns:
+            print(f"[{report.block_start:8.1f}s] PRN {prn} deep-integration "
+                  f"ranging (signal below loop threshold; measured by "
+                  f"block-coherent correlation)")
+        else:
+            print(f"[{report.block_start:8.1f}s] PRN {prn} coasting open-loop "
+                  f"(signal lost; NCOs held by predicted geometry)")
     for prn in report.coast_recovered_prns:
         print(f"[{report.block_start:8.1f}s] PRN {prn} signal returned: "
               f"ranging resumed in place (vector coast)")
@@ -133,10 +141,41 @@ def cmd_replay(args) -> int:
         _logger.info("GLONASS-only replay: %s", glonass_file)
     else:
         receiver = Receiver(source, config, eligible_prns=prns, device=args.device)
+    if args.checkpoint and pathlib.Path(args.checkpoint).exists():
+        from gypsum_tpu_torch.runtime.checkpoint import (
+            fast_forward,
+            load_checkpoint,
+            load_dual_checkpoint,
+        )
+
+        if dual is not None:
+            per_band = load_dual_checkpoint(dual, args.checkpoint)
+            for name, secs in per_band.items():
+                fast_forward(getattr(dual, name).source, secs)
+            stream_s = per_band["gps" if dual.gps is not None else "glonass"]
+        else:
+            stream_s = load_checkpoint(receiver, args.checkpoint)
+            fast_forward(source, stream_s)
+        _logger.info("resumed from %s at stream t=%.1fs", args.checkpoint, stream_s)
+
     receiver.add_block_listener(narrate)
     if dual is not None and dual.glonass is not receiver:
         dual.glonass.add_block_listener(narrate)
-    (dual or receiver).run(max_seconds=args.duration, until_fix=args.until_fix)
+    try:
+        (dual or receiver).run(max_seconds=args.duration, until_fix=args.until_fix)
+    finally:
+        if args.checkpoint:
+            from gypsum_tpu_torch.runtime.checkpoint import (
+                save_checkpoint,
+                save_dual_checkpoint,
+            )
+
+            if dual is not None:
+                save_dual_checkpoint(dual, args.checkpoint)
+            else:
+                save_checkpoint(receiver, args.checkpoint)
+            _logger.info("checkpointed to %s at stream t=%.1fs",
+                         args.checkpoint, source.seconds_consumed)
 
     print(f"processed {source.seconds_consumed:.1f}s; "
           f"{receiver.subframe_count} subframes; "

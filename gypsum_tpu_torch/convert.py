@@ -5,6 +5,11 @@ the tracking loop's carry and the bank's slot binding. The JAX bank keeps
 its carry on the host as numpy arrays (``fresh_state``/``sync_host_state``
 in gypsum_tpu/track/loop.py), as [S] or [S, 1] columns; these functions take
 such arrays, so this module needs neither JAX nor the JAX package.
+
+A whole receiver crosses through a checkpoint: runtime/checkpoint.py reads a
+checkpoint written by the JAX package (its classes mapped to the port's,
+``gypsum_tpu`` never imported) and restores its carry through
+``bank_from_numpy``.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The host-side modules of this package are copies of the JAX package's. A
 few of their code paths reach modules outside the ported slice (the
 notching front end, antenna-array captures, the circulant acquisition
-sweep, the deep coast measurement). Those paths raise this error at the point of use
+sweep). Those paths raise this error at the point of use
 instead of doing less than the reference does.
 """
 

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import logging
 
-from gypsum_tpu_torch.core.unported import unported
+import torch
+
 from gypsum_tpu_torch.nav.bits import BitIntegrator
 from gypsum_tpu_torch.nav.frames import SubframeDecoder
 from gypsum_tpu_torch.runtime.pipeline import BlockReport, _ChannelPipeline
@@ -28,7 +29,8 @@ _logger = logging.getLogger(__name__)
 class CoastMixin:
     """Coast entry/exit, open-loop prediction, and the deep-integration
     measurement of coasting channels. Host state it owns on the Receiver:
-    ``_coast_raw`` (retained raw IQ), ``_coast_measurer``, ``_live_sig``."""
+    ``_coast_raw`` (retained raw IQ), ``_coast_measurer``, ``_live_sig``,
+    ``_coast_raw_dev`` (the last retained block on the device)."""
 
     def _enter_coast(self, obs: ChannelObservation, pipe: _ChannelPipeline,
                      t_end: float) -> bool:
@@ -265,6 +267,58 @@ class CoastMixin:
         p1 = self._coast_prediction(obs.prn, pipe, t_end)
         if p0 is None or p1 is None:
             return None
-        # The measurement (track/deepmeas.py) re-correlates the raw IQ on the
-        # device around the prediction; it is JAX code not yet ported.
-        raise unported("the deep coast measurement (track/deepmeas)")
+        d0, f0 = p0
+        d1, f1 = p1
+        fs = self.sample_rate
+        drift = (((d1 - d0) + 0.5e-3) % 1e-3 - 0.5e-3) * fs
+        if self._coast_measurer is None:
+            from gypsum_tpu_torch.track.deepmeas import DeepCoastMeasurer
+
+            self._coast_measurer = DeepCoastMeasurer(
+                fs, self.samples_per_prn, self.bank.prns, self.bank.config,
+                device=self.device,
+            )
+        # The retained block crosses to the device once, for every channel
+        # that coasts in it (the pageable upload is the largest device item
+        # of a replay).
+        key = int(round(block_start * 1e3))
+        if self._coast_raw_dev is None or self._coast_raw_dev[0] != key:
+            self._coast_raw_dev = (key, torch.from_numpy(raw).to(self.device))
+        raw_dev = self._coast_raw_dev[1]
+        # FDMA channels sit at their sub-band offset in baseband: the static
+        # offset is wiped separately in float64 inside the measurer (float32
+        # chunk phases at MHz offsets would cost ~45° of per-ms jitter on
+        # exactly the weak-signal path that needs coherence); only the
+        # kHz-scale Doppler grid reaches the float32 wipeoff.
+        off = pipe.carrier_offset_hz
+        res = self._coast_measurer.measure(
+            raw_dev,
+            obs.prn,
+            (d0 * fs) % self.samples_per_prn,
+            drift,
+            0.5 * (f0 + f1),
+            static_offset_hz=off,
+        )
+        if res is None or not res.detected:
+            return None
+        from gypsum_tpu_torch.track.deepmeas import xcorr_suspect
+
+        cfg = self.config.tracking
+        live = [v for p, v in self._live_sig.items() if p != obs.prn]
+        if live and xcorr_suspect(
+            off + res.doppler_hz,
+            res.peak_abs,
+            res.groups,
+            int(cfg.coast_meas_coherent_ms),
+            live,
+            float(cfg.coast_meas_xcorr_tol_hz),
+            float(cfg.coast_meas_xcorr_margin),
+        ):
+            _logger.info(
+                "PRN %d deep detection (strength %.2f, %.1f Hz) vetoed: "
+                "Doppler-consistent with a live channel's cross-correlation "
+                "sidelobes", obs.prn, res.strength, res.doppler_hz,
+            )
+            return None
+        delay_end = (d1 + res.cp_error_samples / fs) % 1e-3
+        return delay_end, res.doppler_hz

@@ -194,6 +194,9 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         # coasts, so the collected block can be re-correlated around the
         # coast prediction. The measurer is built lazily on first use.
         self._coast_raw: dict[int, np.ndarray] = {}
+        # (block key, tensor): the retained block being measured, uploaded
+        # once for all of its coasting channels.
+        self._coast_raw_dev: tuple[int, torch.Tensor] | None = None
         self._coast_measurer = None
         # Healthy channels' (absolute Doppler Hz, per-ms prompt magnitude)
         # from the last collected block — the cross-correlation veto input.
@@ -419,6 +422,7 @@ class Receiver(CoastMixin, BandProcessorsMixin):
             t0_key = int(round(t0 * 1e3))
             for k in [k for k in self._coast_raw if k <= t0_key]:
                 del self._coast_raw[k]
+            self._coast_raw_dev = None
 
         # --- position fix attempt (reference: gypsum/receiver.py:137) at
         # the PROCESSED block's end (the world model's tick counters are

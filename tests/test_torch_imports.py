@@ -26,6 +26,9 @@ for name in names:
     if not name.endswith("__main__"):
         importlib.import_module(name)
 import chip_smoke
+from gypsum_tpu_torch.runtime.checkpoint import read_blob
+blob = read_blob(sys.argv[1])  # a checkpoint the JAX package wrote
+assert type(blob["world"]).__module__ == "gypsum_tpu_torch.solve.world"
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib") or k == "gypsum_tpu" or k.startswith("gypsum_tpu."))
 print(len(names), bad)
@@ -38,9 +41,18 @@ def _port_env():
     return env
 
 
-def test_port_and_chip_smoke_import_no_jax():
+def test_port_and_chip_smoke_import_no_jax(tmp_path):
+    """Every module of the port and chip_smoke.py import, and a checkpoint
+    written by the JAX package loads, without JAX or the JAX package."""
+    from gypsum_tpu.io.sources import ArraySampleSource as JaxArraySource
+    from gypsum_tpu.runtime.checkpoint import save_checkpoint as jax_save_checkpoint
+    from gypsum_tpu.runtime.receiver import Receiver as JaxReceiver
+
+    ckpt = tmp_path / "jax.ckpt.gz"
+    jax_save_checkpoint(JaxReceiver(JaxArraySource(np.zeros(2046 * 20, np.complex64), 2.046e6)),
+                        ckpt)
     proc = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_port_env(),
+        [sys.executable, "-c", _IMPORT_ALL, str(ckpt)], cwd=ROOT, env=_port_env(),
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr

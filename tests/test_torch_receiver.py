@@ -145,19 +145,28 @@ def test_cli_replay_prints_a_fix(scene, tmp_path):
 
 
 def test_deep_coast_measurement_raises_where_it_is_needed():
-    """The coast tier's deep measurement (track/deepmeas) is not ported: a
-    coasting channel with retained raw IQ and a prediction raises instead
-    of silently coasting unmeasured."""
+    """The coast tier's deep measurement (track/deepmeas.py) used to raise
+    here while it was unported; the name is kept, and the same set-up now
+    measures: a coasting channel with retained raw IQ and a prediction
+    returns None on a block of zeros (nothing clears the gate) and the
+    measured (delay, Doppler) on a block that holds the signal."""
     from types import SimpleNamespace
+
+    from gypsum_tpu_torch.signal.synth import SyntheticSatellite, synthesize_iq
 
     recv = Receiver(ArraySampleSource(np.zeros(2046 * 20, np.complex64), FS), device="cpu")
     assert recv.config.tracking.coast_deep_measurement
-    obs, pipe = SimpleNamespace(prn=25), SimpleNamespace()
+    obs, pipe = SimpleNamespace(prn=25), SimpleNamespace(carrier_offset_hz=0.0)
     assert recv._deep_coast_measurement(obs, pipe, 0.0, 1000) is None  # no raw block kept
     recv._coast_raw[0] = np.zeros((1000, 2046), np.complex64)
-    recv._coast_prediction = lambda prn, pipe, t: (1e-4, 100.0)
-    with pytest.raises(NotImplementedError, match="deep coast measurement"):
-        recv._deep_coast_measurement(obs, pipe, 0.0, 1000)
+    recv._coast_prediction = lambda prn, pipe, t: (500 / FS, 300.0)
+    assert recv._deep_coast_measurement(obs, pipe, 0.0, 1000) is None
+    sat = SyntheticSatellite(prn=25, doppler_hz=300.0, delay_samples=500, amplitude=0.05)
+    recv._coast_raw[1000] = synthesize_iq([sat], 1000 * 2046, FS, noise_sigma=0.35,
+                                          seed=4).reshape(1000, 2046)
+    delay_s, doppler = recv._deep_coast_measurement(obs, pipe, 1.0, 1000)
+    assert abs(doppler - 300.0) < 2.0
+    assert abs((delay_s * FS - 500.0 + 1023.0) % 2046.0 - 1023.0) < 0.5
 
 
 def test_async_upload_gives_the_same_observations():
