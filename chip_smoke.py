@@ -97,10 +97,23 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    the 23 s GPS scene replayed with ``--duration 12 --checkpoint``, then
    resumed, within 1 m of the uninterrupted run's fixes; one fade replay
    under torch.profiler;
-9. a ``{"kernels": [...]}`` line with each kernel's launches, error and
+9. the front ends and the circulant sweep: the circulant-matmul coarse
+   sweep (``correlator="matmul"``) against the FFT sweep on the 23 s
+   scene's first 10 ms (the bars of tests/test_acquisition.py:160-185),
+   both timed beside their bounds with the per-satellite form, K2 on its
+   grid, the 23 s scene replayed through it (held to the default run), and
+   the GLONASS FDMA family's one-row table (this step runs after step 4's
+   replays); the 25 s CW-jammed scene of tests/test_interference.py
+   through ``NotchingSampleSource`` and ``replay --notch`` (its bars), the
+   notch's times per 1000 ms block beside the numpy notch's, the card
+   against the CPU and against itself; the 23 s 4-element array scene of
+   tests/test_beamform.py through ``null_jammers`` (> 15 dB, the
+   contraction against numpy's), the default receiver (within 15 m) and
+   ``replay --beamform`` (the MUSIC bearing within 4 deg);
+10. a ``{"kernels": [...]}`` line with each kernel's launches, error and
    both times beside its bound, and an entry per kernel at its GLONASS
    inputs (launches from the GLONASS replays) and at the deep sweep's;
-10. last line: ``{"ok": true, "device": {...}}``.
+11. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 It exits with an error at once when no CUDA device is present.
@@ -121,6 +134,7 @@ from __future__ import annotations
 import ctypes
 import inspect
 import json
+import logging
 import os
 import re
 import subprocess
@@ -137,6 +151,7 @@ FS, L = 2.046e6, 2046
 FS_FAST = 8.184e6  # the gnu_radio_8x capture rate: decimated by 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 SCENE_PRNS = [25, 28, 31, 32]
 TRUTH_LLA = (51.5, -0.1, 80.0)
 GPS_T0 = 21600.0
@@ -234,11 +249,12 @@ def timing_keys(t: dict) -> dict:
     }
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, n_bf16_ops: float = 0.0) -> tuple[float, str]:
     """Least time (ms) the card could take: the larger of bytes over the
-    memory rate and float32 operations over the float32 peak."""
+    memory rate and the operations over the peak rate of their type (float32
+    outside the tensor cores, bf16 products on them)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = (n_ops / FP32_OPS_PER_S + n_bf16_ops / BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1080,9 +1096,11 @@ def synthesize_named(name: str) -> np.ndarray:
     tests/test_glonass_receiver.py (13 s; at 8.184 Msps cut to 11 s, its
     first fix lands at 9 s); the GPS + GLONASS pair of that file's
     dual-band test (24 s, k = -2, 0, 2); the iono-loaded L1OF + L2OF
-    pair of tests/test_dualfreq.py (16 s); and the 38 s deep-fade scene of
+    pair of tests/test_dualfreq.py (16 s); the 38 s deep-fade scene of
     tests/test_deepcoast.py:181-198 (PRNs 25/28/31/32/3 faded to 0.03 over
-    23-33 s, clock drift 2e-8, noise 0.35)."""
+    23-33 s, clock drift 2e-8, noise 0.35); the 25 s, 5-PRN CW-jammed scene
+    of tests/test_interference.py:151-186; and the 23 s, 4-element array
+    scene of tests/test_beamform.py:129-153 with its broadband jammer."""
     from gypsum_tpu_torch.signal.constellation import synthesize_constellation
     from gypsum_tpu_torch.signal.scenarios import (
         DEMO_GPS_START_SOW,
@@ -1119,6 +1137,21 @@ def synthesize_named(name: str) -> np.ndarray:
         return synthesize_constellation(demo_glonass_constellation(GLO_KS), rx, GLO_START_SOW,
                                         16.0, FS_GLO, noise_sigma=0.25, iono=iono,
                                         glonass_band=name[-2:])[0]
+    if name == "notch":
+        from gypsum_tpu_torch.signal.constellation import RfImpairments, apply_rf_impairments
+        from gypsum_tpu_torch.signal.scenarios import DEMO_PRNS_8
+
+        iq, _ = synthesize_constellation(demo_constellation(DEMO_PRNS_8[:5]), lla_to_ecef(*TRUTH_LLA),
+                                         DEMO_GPS_START_SOW, 25.0, FS, noise_sigma=0.25)
+        return apply_rf_impairments(iq, FS, RfImpairments(cw_amplitude=NOTCH_CW[0],
+                                                          cw_freq_hz=NOTCH_CW[1]))
+    if name == "array":
+        from gypsum_tpu_torch.signal.array import ArrayJammer, synthesize_array
+
+        jam = ArrayJammer(azimuth_deg=ARRAY_JAMMER[0], elevation_deg=ARRAY_JAMMER[1],
+                          amplitude=6.0, kind="noise", bandwidth_hz=1.4e6)
+        return synthesize_array(demo_constellation(SCENE_PRNS), lla_to_ecef(*TRUTH_LLA),
+                                DEMO_GPS_START_SOW, 23.0, FS, noise_sigma=0.3, jammer=jam)[0]
     raise ValueError(f"no scene {name!r}")
 
 
@@ -1213,7 +1246,7 @@ def timed_run(recv) -> float:
 
 
 def run_receiver(iq: np.ndarray, rx: np.ndarray, dev, peak_kernel: bool = False,
-                 source=None, **tracking):
+                 source=None, correlator: str | None = None, **tracking):
     """One in-process replay of ``iq`` at 2.046 Msps (or of ``source``), with
     ``tracking`` fields set on the default TrackingConfig (``timed_run``)."""
     import dataclasses
@@ -1223,8 +1256,9 @@ def run_receiver(iq: np.ndarray, rx: np.ndarray, dev, peak_kernel: bool = False,
     from gypsum_tpu_torch.runtime.receiver import Receiver
 
     cfg = ReceiverConfig()
-    if peak_kernel:
-        cfg = cfg.replace(acquisition=AcquisitionConfig(use_pallas_peak_reduce=True))
+    if peak_kernel or correlator:
+        cfg = cfg.replace(acquisition=AcquisitionConfig(
+            use_pallas_peak_reduce=True if peak_kernel else None, correlator=correlator))
     cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, **tracking))
     recv = Receiver(source if source is not None else ArraySampleSource(iq, FS), cfg, device=dev)
     wall = timed_run(recv)
@@ -1242,6 +1276,7 @@ def run_receiver(iq: np.ndarray, rx: np.ndarray, dev, peak_kernel: bool = False,
 
 
 KERNELS = {}  # name -> CudaKernel, filled by main()
+SMI = []  # the card's "name, power limit" line from nvidia-smi, set by main()
 EMPTY_KERNEL = None  # the kernel that does nothing (csrc/empty.cu), set by main()
 
 
@@ -1980,6 +2015,391 @@ def run_checkpoints(dev, scenes: "Scenes", fade_recv, uninterrupted: list) -> No
         f"re-acquired; launches {n}")
 
 
+# ------------------------------- the circulant sweep and the front ends
+
+
+NOTCH_CW = (10.0, 257e3)  # tests/test_interference.py:167: CW amplitude, offset Hz
+NOTCH_PRNS = [25, 28, 31, 32, 3]  # signal/scenarios.py:DEMO_PRNS_8[:5]
+ARRAY_JAMMER = (300.0, 12.0)  # tests/test_beamform.py:141: azimuth, elevation deg
+
+
+def sweep_bars(what: str, mm_hits, fft_hits, on_air) -> None:
+    """The circulant sweep held to the FFT sweep with the bars of
+    tests/test_acquisition.py:160-185: the same detected set; on the air,
+    code phase equal and Doppler within 2 Hz; every row's strength within
+    5 % of max(1, strength)."""
+    fft = {h.prn: h for h in fft_hits}
+    if {h.prn for h in mm_hits if h.detected} != {p for p, h in fft.items() if h.detected} or not (
+            set(on_air) <= {h.prn for h in mm_hits if h.detected}):
+        raise AssertionError(f"{what}: detected sets differ: {mm_hits} / {fft_hits}")
+    for h in mm_hits:
+        f = fft[h.prn]
+        if h.prn in on_air and (h.code_phase_samples != f.code_phase_samples
+                                or abs(h.doppler_hz - f.doppler_hz) >= 2.0):
+            raise AssertionError(f"{what}: PRN {h.prn} matmul {h}, FFT {f}")
+        if abs(h.strength - f.strength) >= 0.05 * max(1.0, f.strength):
+            raise AssertionError(f"{what}: PRN {h.prn} strength {h.strength} vs {f.strength}")
+
+
+def time_sweeps(what: str, x, dopplers, mm_engine, fft_engine, fs: float) -> dict:
+    """Both coarse sweeps on the same 10 ms, by ``two_way``, beside the
+    circulant sweep as a loop of one product per satellite (the JAX
+    package's ``lax.map`` form, kept out of the port: the batched product
+    measured faster, ``ops/correlate.py``)."""
+    from gypsum_tpu_torch.ops.correlate import (
+        doppler_wipeoff,
+        noncoherent_acquisition_sweep,
+        noncoherent_acquisition_sweep_matmul,
+    )
+
+    table = mm_engine.circulant
+    m_count, length = x.shape
+    d_count = dopplers.shape[0]
+
+    def per_satellite():
+        z = doppler_wipeoff(x, dopplers, fs).reshape(-1, length)
+        z = torch.cat([z.real, z.imag]).to(torch.bfloat16)
+        out = []
+        for c in table:
+            c = torch.mm(z, c, out_dtype=torch.float32)
+            mag = torch.sqrt(c[: d_count * m_count] ** 2 + c[d_count * m_count:] ** 2)
+            out.append(mag.reshape(d_count, m_count, length).sum(dim=1))
+        return torch.stack(out)
+
+    ref = noncoherent_acquisition_sweep_matmul(x, dopplers, table, fs)
+    if not torch.allclose(per_satellite(), ref, rtol=1e-5, atol=1e-3):
+        raise AssertionError(f"{what}: the per-satellite form differs from the batched one")
+    return two_way({
+        "fft sweep": (lambda: noncoherent_acquisition_sweep(
+            x, dopplers, fft_engine.prn_fft_conj, fs), 10, 2),
+        "matmul sweep": (lambda: noncoherent_acquisition_sweep_matmul(x, dopplers, table, fs),
+                         10, 2),
+        "matmul sweep, per satellite": (per_satellite, 10, 2),
+    })
+
+
+def sweep_bounds(s_count: int, d_count: int, m_count: int, length: int) -> dict:
+    """Bounds of the two coarse sweeps (``bound``'s rule). The circulant: a
+    bf16 product of 2 x 2 x (D M) x L^2 operations per satellite, the table
+    read once; the wipeoff and |.| in float32. The FFT sweep: 5 n log2 n per
+    complex transform (D M forward, S D M inverse), 6 per complex product,
+    3 per |.|; the replica FFT table read once. Both write [S, D, L]."""
+    rows = d_count * m_count
+    io = 8 * m_count * length + 4 * s_count * d_count * length
+    fp32 = 10 * rows * length + 4 * s_count * rows * length
+    mm = bound(io + 2 * s_count * length * length, fp32, 4 * s_count * rows * length * length)
+    fft_ops = 5 * length * np.log2(length) * rows * (1 + s_count) + 9 * s_count * rows * length
+    fft = bound(io + 8 * s_count * length, fft_ops)
+    return {"matmul": mm, "fft": fft}
+
+
+def run_circulant_sweep(dev, scenes: "Scenes", iq: np.ndarray, rx: np.ndarray, ref_recv,
+                        ref_acq) -> None:
+    """The circulant-matmul sweep (``correlator="matmul"``) on the card: its
+    table's build, its acquisitions against the FFT sweep's on the first
+    10 ms of the 23 s scene, both sweeps timed, K2 on its grid, then the
+    23 s scene replayed to a fix through it (K2 and K1 launched, held to
+    the default run), and the GLONASS FDMA family's one-row table against
+    the FFT sweep on the GLONASS-only scene's first 10 ms."""
+    from gypsum_tpu_torch.acquire.engine import AcquisitionEngine
+    from gypsum_tpu_torch.core.config import AcquisitionConfig
+    from gypsum_tpu_torch.core.constants import GLONASS_L1_CHANNEL_SPACING_HZ
+    from gypsum_tpu_torch.ops.correlate import build_circulant_table
+    from gypsum_tpu_torch.signal.prn import (
+        ALL_PRN_IDS,
+        GLONASS_PRN_IDS,
+        glonass_frequency_number,
+        replica_table,
+    )
+
+    block = np.ascontiguousarray(iq[: 10 * L].reshape(10, L))
+    fft_engine = AcquisitionEngine(FS, L, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mm_engine = AcquisitionEngine(FS, L, AcquisitionConfig(correlator="matmul"), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    table = mm_engine.circulant
+    reps = replica_table(L, ALL_PRN_IDS)
+    idx = (np.arange(L)[:, None] - np.arange(L)[None, :]) % L
+    for s in (0, 17, 31):
+        if not np.array_equal(table[s].float().cpu().numpy(), reps[s][idx]):
+            raise AssertionError(f"circulant table row {s} differs from r[(l - tau) mod L]")
+    reps_dev = torch.from_numpy(reps.copy()).to(dev)
+    table_issue = issue_ms(lambda: build_circulant_table(reps_dev, dev), 5)
+    mm_hits = mm_engine.acquire_all(block)
+    sweep_bars("GPS circulant sweep", mm_hits, fft_engine.acquire_all(block), SCENE_PRNS)
+
+    x = torch.from_numpy(block).to(dev)
+    t = time_sweeps("GPS", x, fft_engine.coarse_dopplers, mm_engine, fft_engine, FS)
+    b = sweep_bounds(32, fft_engine.coarse_dopplers.shape[0], 10, L)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    log(f"circulant sweep, GPS [32, 29, 2046] from 10 ms: the table {table.numel() * 2 / 1e6:.1f} MB "
+        f"bf16 (3 rows checked exact), the engine built in {1e3 * build_s:.2f} ms (host clock, "
+        f"synchronized), the table alone {table_issue:.3f} ms issue; matmul sweep device "
+        f"{t['matmul sweep'][0]:.4f} ms, issue {t['matmul sweep'][1]:.4f} ms, bound "
+        f"{b['matmul'][0]:.4f} ms ({b['matmul'][1]}); per satellite device "
+        f"{t['matmul sweep, per satellite'][0]:.4f} ms, issue "
+        f"{t['matmul sweep, per satellite'][1]:.4f} ms; FFT sweep device "
+        f"{t['fft sweep'][0]:.4f} ms, issue {t['fft sweep'][1]:.4f} ms, bound "
+        f"{b['fft'][0]:.5f} ms ({b['fft'][1]}); acquisitions as the FFT sweep's (bars of "
+        f"tests/test_acquisition.py:160-185); peak device memory so far {peak_mb:.0f} MB")
+
+    k2_engine = AcquisitionEngine(FS, L, AcquisitionConfig(correlator="matmul",
+                                                           use_pallas_peak_reduce=True), device=dev)
+    reset_launches()
+    k2_hits = k2_engine.acquire_all(block)
+    n = launches()
+    if n["K2"] != 1 or [(h.prn, h.code_phase_samples, h.doppler_hz) for h in k2_hits] != [
+            (h.prn, h.code_phase_samples, h.doppler_hz) for h in mm_hits]:
+        raise AssertionError(f"K2 on the matmul grid: launches {n}, hits differ:\n{k2_hits}")
+    del k2_engine, fft_engine, mm_engine
+
+    reset_launches()
+    recv, acq, errs, wall = run_receiver(iq, rx, dev, peak_kernel=True, correlator="matmul")
+    n = launches()
+    if n["K1"] == 0 or n["K2"] == 0:
+        raise AssertionError(f"the circulant-sweep replay launched {n}")
+    agree = check_same_tracking("circulant sweep", recv, acq, ref_recv, ref_acq)
+    log(f"e2e Receiver(device='cuda'), correlator='matmul', use_pallas_peak_reduce=True: "
+        f"{len(errs)} fixes, best {min(errs):.2f} m, last {errs[-1]:.2f} m; acquisitions as the "
+        f"default run; sign agreement {agree}; {wall:.2f} s wall; launches {n}; {recv.collect}")
+    del recv
+
+    glo = scenes.get("glonass")[: 10 * L_GLO].reshape(10, L_GLO).copy()
+    kw = dict(prns=GLONASS_PRN_IDS, device=dev, center_offsets_hz=tuple(
+        glonass_frequency_number(p) * GLONASS_L1_CHANNEL_SPACING_HZ for p in GLONASS_PRN_IDS))
+    fft_engine = AcquisitionEngine(FS_GLO, L_GLO, **kw)
+    mm_engine = AcquisitionEngine(FS_GLO, L_GLO, AcquisitionConfig(correlator="matmul"), **kw)
+    sweep_bars("GLONASS FDMA circulant sweep", mm_engine.acquire_all(glo),
+               fft_engine.acquire_all(glo), GLO_PRNS)
+    x = torch.from_numpy(glo).to(dev)
+    t = time_sweeps("GLONASS", x, fft_engine.sweep_dopplers, mm_engine, fft_engine, FS_GLO)
+    b = sweep_bounds(1, fft_engine.sweep_dopplers.shape[0], 10, L_GLO)
+    log(f"circulant sweep, GLONASS FDMA [1, 406, 4092] from 10 ms (one shared code row, table "
+        f"{mm_engine.circulant.numel() * 2 / 1e6:.1f} MB): matmul device "
+        f"{t['matmul sweep'][0]:.4f} ms, issue {t['matmul sweep'][1]:.4f} ms, bound "
+        f"{b['matmul'][0]:.4f} ms ({b['matmul'][1]}); FFT device {t['fft sweep'][0]:.4f} ms, "
+        f"issue {t['fft sweep'][1]:.4f} ms, bound {b['fft'][0]:.5f} ms ({b['fft'][1]}); "
+        f"the 5 channels on the air as the FFT sweep finds them")
+
+
+class LogLines(logging.Handler):
+    """The messages of INFO and above logged to one logger while it is
+    attached (whatever level an earlier CLI run left the root logger at)."""
+
+    def __init__(self, name: str) -> None:
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+        self.logger = logging.getLogger(name)
+        self._level = self.logger.level
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self._level)
+
+
+def run_notch(dev, scenes: "Scenes") -> None:
+    """The STFT notch on the card: the 25 s, 5-PRN scene with a CW jammer
+    of amplitude 10 at 257 kHz (tests/test_interference.py:151-186) through
+    ``Receiver(NotchingSampleSource(...))`` and through ``replay --notch
+    --until-fix``, to that test's bars; the notch's device and issue ms per
+    1000 ms block beside the numpy notch's host time; one block on the card
+    against the same function on the CPU, and two card runs bit-equal."""
+    from gypsum_tpu_torch.core.config import ReceiverConfig
+    from gypsum_tpu_torch.io.sources import ArraySampleSource, NotchingSampleSource
+    from gypsum_tpu_torch.ops.interference import make_stft_notch, stft_notch_np
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+    from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
+
+    rx = lla_to_ecef(*TRUTH_LLA)
+    jammed = scenes.get("notch")
+    source = NotchingSampleSource(ArraySampleSource(jammed, FS), device=dev)
+    read_block, read_s = source.read_block, []
+
+    def timed_read(n_ms):
+        t = time.perf_counter()
+        out = read_block(n_ms)
+        read_s.append(time.perf_counter() - t)
+        return out
+
+    source.read_block = timed_read
+    recv = Receiver(source, ReceiverConfig(), eligible_prns=NOTCH_PRNS, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recv.run(until_fix=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = launches()
+    fixes = recv.world.position_fixes
+    if not fixes or n["K1"] == 0:
+        raise AssertionError(f"notch replay: {len(fixes)} fixes, launches {n}")
+    fix = fixes[0]
+    err = float(np.linalg.norm(fix.ecef - rx))
+    fractions = [rep.fraction for _, rep in source.events]
+    if err >= 20.0 or source.interference_seconds < fix.receiver_timestamp - 2.0 or max(
+            fractions) >= 0.01:
+        raise AssertionError(f"notch replay: fix {err:.2f} m at {fix.receiver_timestamp} s, "
+                             f"{source.interference_seconds} s of interference, fractions {fractions}")
+    rep = source.events[0][1]
+    log(f"e2e Receiver(NotchingSampleSource(25 s, CW {NOTCH_CW[0]} at {NOTCH_CW[1]:.0f} Hz), "
+        f"device='cuda'): first fix at {fix.receiver_timestamp:.1f} s, {err:.2f} m from truth (bar "
+        f"20 m); interference on {source.interference_seconds:.0f} blocks, {rep.n_bins} bins at "
+        f"{rep.peak_over_median_db:.1f} dB, fractions <= {max(fractions):.5f} (bar 0.01); "
+        f"{wall:.2f} s wall; launches {n}; read_block (upload 16 MB, notch, download 16 MB) "
+        f"mean {1e3 * np.mean(read_s):.2f} ms, median {1e3 * np.median(read_s):.2f} ms over "
+        f"{len(read_s)} calls")
+
+    with LogLines("gypsum_tpu_torch.io.sources") as lines:
+        reset_launches()
+        out, wall = run_cli_here("--file", str(scenes.path("notch")), "--notch", "--until-fix",
+                                 "--prns", *map(str, NOTCH_PRNS))
+        n = launches()
+    fixes = cli_fixes(out)
+    excised = [m for m in lines.lines if "interference:" in m and "excised" in m]
+    if not fixes or n["K1"] == 0 or not excised:
+        raise AssertionError(f"replay --notch: {len(fixes)} fixes, {len(excised)} excision lines, "
+                             f"launches {n}:\n{out[-2000:]}")
+    err = float(np.linalg.norm(fixes[0][0] - rx))
+    if err >= 20.0:
+        raise AssertionError(f"replay --notch first fix {err:.2f} m from truth (bar 20 m)")
+    log(f"e2e CLI replay --notch --until-fix (in process): FIX {err:.2f} m from truth after "
+        f"{processed_blocks(out)} blocks, {len(excised)} excision lines; {wall:.2f} s wall; "
+        f"launches {n}")
+
+    n = 1000 * L
+    block = jammed[:n]
+    planes = torch.from_numpy(np.stack([block.real, block.imag]))
+    notch = make_stft_notch(n, FS, guard_bins=2, device=dev)
+    x = planes.to(dev)
+    a, sa = notch(x)
+    b, sb = notch(x)
+    cpu, sc = make_stft_notch(n, FS, guard_bins=2, device="cpu")(planes)
+    if not (torch.equal(a, b) and torch.equal(sa, sb)):
+        raise AssertionError("two card runs of the notch differ")
+    rel = float((a.cpu() - cpu).norm() / cpu.norm())
+    # Tolerance: the CPU and the card take the same float32 FFTs, means and
+    # median in another order (~3e-6 measured); bins held equal.
+    if int(sa[0]) != int(sc[0]) or sa[2] != sc[2] or rel > 1e-5:
+        raise AssertionError(f"notch on the card vs the CPU: stats {sa.tolist()} / {sc.tolist()}, "
+                             f"relative error {rel:.3g}")
+    t = two_way({"notch": (lambda: notch(x), 20, 2)})
+    t0 = time.perf_counter()
+    _, rep_np = stft_notch_np(block, FS, guard_bins=2)
+    np_s = time.perf_counter() - t0
+    if rep_np.n_bins != int(sa[0]):
+        raise AssertionError(f"numpy notch masks {rep_np.n_bins} bins, the card {int(sa[0])}")
+    log(f"notch per 1000 ms block ([2, 2046000], {notch.n_frames} frames x 4096): device "
+        f"{t['notch'][0]:.4f} ms, issue {t['notch'][1]:.4f} ms; card vs CPU relative error "
+        f"{rel:.3g}, {int(sa[0])} bins on both, two card runs equal to the bit; the numpy notch "
+        f"(the JAX package's, host) {1e3 * np_s:.1f} ms on this host")
+
+
+def run_beamform(dev, scenes: "Scenes") -> None:
+    """The CRPA beamformer on the card: the 23 s 4-element scene with a
+    broadband jammer of amplitude 6 from (300, 12) deg
+    (tests/test_beamform.py:129-153) through ``null_jammers`` (suppression
+    > 15 dB, the contraction within 1e-6 of numpy's ``apply_weights``), the
+    beamformed stream through the default Receiver to a fix within 15 m,
+    and ``replay --beamform --until-fix`` on the capture with an
+    ``elements_enu`` sidecar, its MUSIC bearing within 4 deg of the
+    jammer's."""
+    import json
+
+    from gypsum_tpu_torch.core.config import ReceiverConfig
+    from gypsum_tpu_torch.io.sources import ArraySampleSource
+    from gypsum_tpu_torch.ops.beamform import (
+        apply_weights,
+        apply_weights_torch,
+        contract,
+        null_jammers,
+    )
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+    from gypsum_tpu_torch.signal.array import square_array_enu
+    from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
+
+    rx = lla_to_ecef(*TRUTH_LLA)
+    arr = scenes.get("array")
+    t0 = time.perf_counter()
+    y, w, supp = null_jammers(arr, device=dev)
+    null_s = time.perf_counter() - t0
+    if supp <= 15.0:
+        raise AssertionError(f"beamform suppression {supp:.2f} dB (bar 15 dB)")
+    t0 = time.perf_counter()
+    y_np = apply_weights(arr, w)
+    np_s = time.perf_counter() - t0
+    rel = float(np.linalg.norm(y - y_np) / np.linalg.norm(y_np))
+    if rel > 1e-6:
+        raise AssertionError(f"the card's contraction is {rel:.3g} from numpy's (bar 1e-6)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apply_weights_torch(arr, w, dev)
+    card_s = time.perf_counter() - t0
+    chunk = torch.from_numpy(np.ascontiguousarray(arr[:, :2_000_000])).to(dev)
+    wc = torch.from_numpy(np.conj(w).astype(np.complex64)).to(dev)
+    t = two_way({"contraction": (lambda: contract(wc, chunk), 20, 2)})
+    b = bound(chunk.numel() * 8 + chunk.shape[1] * 8, 8 * chunk.numel())
+    log(f"beamform, 23 s x 4 elements ({arr.nbytes / 1e9:.2f} GB): null_jammers on the card "
+        f"{null_s:.3f} s (covariance, solve on the host; contraction on the card), suppression "
+        f"{supp:.2f} dB (bar 15), |w| {np.round(np.abs(w), 3).tolist()}; the contraction alone "
+        f"{1e3 * card_s:.1f} ms with its transfers vs numpy's {1e3 * np_s:.1f} ms on the host, "
+        f"relative error {rel:.3g} (bar 1e-6); one 2M-sample slab resident on the card: device "
+        f"{t['contraction'][0]:.4f} ms, issue {t['contraction'][1]:.4f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]})")
+    del chunk, y_np
+
+    recv = Receiver(ArraySampleSource(y, FS), ReceiverConfig(), eligible_prns=SCENE_PRNS,
+                    device=dev)
+    reset_launches()
+    wall = timed_run(recv)
+    n = launches()
+    fixes = recv.world.position_fixes
+    if not fixes or n["K1"] == 0:
+        raise AssertionError(f"beamformed replay: {len(fixes)} fixes, launches {n}")
+    err = float(np.linalg.norm(fixes[-1].ecef - rx))
+    if err >= 15.0:
+        raise AssertionError(f"beamformed replay: last fix {err:.2f} m from truth (bar 15 m)")
+    log(f"e2e Receiver(ArraySampleSource(beamformed), device='cuda'): {len(fixes)} fixes, first at "
+        f"{fixes[0].receiver_timestamp:.1f} s, last {err:.2f} m from truth (bar 15 m); {wall:.2f} s "
+        f"wall; launches {n}; {recv.collect}")
+    del recv, y
+
+    path = scenes.path("array")
+    elements = square_array_enu()
+    Path(str(path) + ".json").write_text(json.dumps({
+        "sample_rate": FS, "dtype": "complex64", "elements": len(elements),
+        "elements_enu": elements.tolist()}))
+    with LogLines("gypsum_tpu_torch") as lines:
+        reset_launches()
+        out, wall = run_cli_here("--file", str(path), "--beamform", "--until-fix",
+                                 "--prns", *map(str, SCENE_PRNS))
+        n = launches()
+    fixes = cli_fixes(out)
+    bearings = [tuple(float(v) for v in m) for m in re.findall(
+        r"interference bearing: azimuth (\d+) deg, elevation (-?\d+) deg", "\n".join(lines.lines))]
+    if not fixes or n["K1"] == 0 or len(bearings) != 1:
+        raise AssertionError(f"replay --beamform: {len(fixes)} fixes, bearings {bearings}, "
+                             f"launches {n}:\n{out[-2000:]}")
+    az, el = bearings[0]
+    err = float(np.linalg.norm(fixes[0][0] - rx))
+    if (abs((az - ARRAY_JAMMER[0] + 180.0) % 360.0 - 180.0) > 4.0
+            or abs(el - ARRAY_JAMMER[1]) > 4.0 or err >= 15.0):
+        raise AssertionError(f"replay --beamform: bearing ({az}, {el}), fix {err:.2f} m")
+    log(f"e2e CLI replay --beamform --until-fix (in process, elements_enu sidecar): bearing "
+        f"azimuth {az:.0f} deg, elevation {el:.0f} deg (jammer at {ARRAY_JAMMER}, bar 4 deg); "
+        f"FIX {err:.2f} m from truth; {wall:.2f} s wall (np.load of the capture included); "
+        f"launches {n}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -1990,6 +2410,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    SMI.append(smi)
     log(smi)
     log(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2005,9 +2426,11 @@ def main() -> int:
         tmp.cleanup()
 
 
-# The replays' scenes (``synthesize_named``), in the order they are needed.
-SCENE_NAMES = ["gps", "gps_8x", "fade", "glonass", "glonass_8x", "dual_gps", "dual_glonass",
-               "iono_l1", "iono_l2"]
+# The replays' scenes (``synthesize_named``), in the order they are needed,
+# except the array scene (four syntheses of 23 s, the longest), which
+# starts first.
+SCENE_NAMES = ["gps", "array", "gps_8x", "fade", "glonass", "glonass_8x", "dual_gps",
+               "dual_glonass", "iono_l1", "iono_l2", "notch"]
 
 
 def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
@@ -2179,6 +2602,10 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
         f"{1e3 * np.mean(read_s):.1f} ms per block; {recv_g.collect}")
     del iq_fast, source, recv_g
 
+    # The circulant sweep: on the 23 s scene's first 10 ms, then the scene
+    # replayed through it (K1 and K2), held to the default run.
+    run_circulant_sweep(dev, scenes, iq, rx, recv, acq_a)
+
     track_ms, acq_ms = block_timings(recv, iq)
     log(f"timing: one 1000 ms tracking block (phase 1 bf16 matmul with float32 "
         f"output + K1) {track_ms:.3f} ms; one 10 ms acquisition sweep {acq_ms:.3f} ms")
@@ -2203,7 +2630,12 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
                                  fade_config(pipeline_tracking=False), device=dev))
     del fade_iq, fade_recv
 
+    # The interference front ends: the STFT notch and the CRPA beamformer.
+    run_notch(dev, scenes)
+    run_beamform(dev, scenes)
+
     log(f"total: {time.perf_counter() - T_START:.1f} s since the script started")
+    log(SMI[0])  # again at the end, where a kept tail of the output still shows it
     log(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({
         "ok": True,

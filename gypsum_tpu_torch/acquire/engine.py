@@ -9,11 +9,12 @@ phase, carrier phase, strength).
 Three stages, all PRNs at once:
 
 1. Coarse: non-coherent 10 ms integration over a fixed +/-7 kHz / 500 Hz
-   grid (``ops/correlate.py``); the flat argmax over [Doppler x code phase]
-   gives the code phase and a Doppler bin, ties going to the lowest Doppler
-   bin, then the lowest code phase. With ``use_pallas_peak_reduce`` the
-   grid's row reduce goes through kernel K2 (``ops/peak_reduce.py``) with
-   the same tie order.
+   grid (``ops/correlate.py``: batched FFTs, or with ``correlator="matmul"``
+   bf16 products against circulant replica tables); the flat argmax over
+   [Doppler x code phase] gives the code phase and a Doppler bin, ties
+   going to the lowest Doppler bin, then the lowest code phase. With
+   ``use_pallas_peak_reduce`` the grid's row reduce goes through kernel K2
+   (``ops/peak_reduce.py``) with the same tie order.
 2. Fine: coherent 10 ms integration at the detected code phase over a
    +/-400 Hz / 25 Hz grid, with the wipeoff separated into per-satellite
    coarse terms and a shared fine-offset basis (one [S, L] x [L, F] product
@@ -33,9 +34,10 @@ from torch import nn
 
 from gypsum_tpu_torch.core.config import AcquisitionConfig
 from gypsum_tpu_torch.core.device import resolve_device
-from gypsum_tpu_torch.core.unported import unported
 from gypsum_tpu_torch.ops.correlate import (
+    build_circulant_table,
     noncoherent_acquisition_sweep,
+    noncoherent_acquisition_sweep_matmul,
     peak_strength,
     replica_fft_conj_table,
 )
@@ -108,8 +110,9 @@ class AcquisitionEngine(nn.Module):
     baseband frequency (offset + Doppler); callers subtract the channel
     center when seeding a tracker's offset-relative Doppler.
 
-    The replica FFT table, the tiled replicas and the Doppler grids are
-    registered buffers on ``device``.
+    The replica FFT table (or, with ``correlator="matmul"``, the bf16
+    circulant tables, built once here on ``device``), the tiled replicas and
+    the Doppler grids are registered buffers on ``device``.
     """
 
     def __init__(
@@ -138,8 +141,6 @@ class AcquisitionEngine(nn.Module):
                 f"AcquisitionConfig.correlator must be 'matmul', 'fft' or None, "
                 f"got {cfg.correlator!r}"
             )
-        if cfg.correlator == "matmul":
-            raise unported("the circulant-matmul acquisition sweep")
 
         reps = replica_table(self.samples_per_prn, self.prns)  # [S, L] float32 +/-1
         if offsets is not None and not all(
@@ -152,9 +153,15 @@ class AcquisitionEngine(nn.Module):
         # FDMA: one shared code row drives the flattened sweep.
         sweep_reps = reps[:1] if offsets is not None else reps
         dev = self.device
+        # None selects the FFT sweep on every device (the JAX engine picks
+        # the circulant sweep on a TPU; on the card that is a measurement's
+        # call, ROADMAP item 15).
+        matmul = cfg.correlator == "matmul"
+        self.register_buffer("prn_fft_conj", None if matmul else torch.from_numpy(
+            replica_fft_conj_table(sweep_reps)).to(dev))
         self.register_buffer(
-            "prn_fft_conj", torch.from_numpy(replica_fft_conj_table(sweep_reps)).to(dev)
-        )
+            "circulant", build_circulant_table(sweep_reps, dev) if matmul else None,
+            persistent=False)
         self.register_buffer(
             "replica_tiled", torch.from_numpy(np.concatenate([reps, reps], axis=1)).to(dev)
         )
@@ -190,10 +197,11 @@ class AcquisitionEngine(nn.Module):
         # over the concatenated per-channel grids ([1, K*D, L]), reshaped
         # back to [K, D, L].
         fdma = self.center_offsets is not None
-        noncoh = noncoherent_acquisition_sweep(
-            samples_ms, self.sweep_dopplers if fdma else coarse_dopplers,
-            self.prn_fft_conj, fs,
-        )  # [S, D, L]
+        dopplers = self.sweep_dopplers if fdma else coarse_dopplers
+        if self.circulant is not None:  # [S, D, L]
+            noncoh = noncoherent_acquisition_sweep_matmul(samples_ms, dopplers, self.circulant, fs)
+        else:
+            noncoh = noncoherent_acquisition_sweep(samples_ms, dopplers, self.prn_fft_conj, fs)
         if fdma:
             noncoh = noncoh.reshape(len(self.prns), coarse_dopplers.shape[0], length)
         use_kernel = self.config.use_pallas_peak_reduce

@@ -9,13 +9,18 @@ Usage:
     python -m gypsum_tpu_torch acquire --file capture.npy [--deep [--deep-ms 200]]
     python -m gypsum_tpu_torch acquire --file capture.npy --deep --snapshot \
         --checkpoint run.ckpt --assume-lla 51.5,-0.1,80 --assume-tow 21604
+    python -m gypsum_tpu_torch synth --out jammed.npy --duration 25 --cw 12
+    python -m gypsum_tpu_torch replay --file jammed.npy --notch --until-fix
+    python -m gypsum_tpu_torch synth --out c.npy --array-out arr.npy --jam 6
+    python -m gypsum_tpu_torch replay --file arr.npy --beamform --until-fix
 
-The JAX CLI's other sub-commands (synth, rtk, bench) and the replay flags
-for RINEX/NMEA export, the web UI, assisted start, notch and beamform are
-not ported yet (ROADMAP.md). Captures at
-other rates than the band's processing rate (2.046 Msps GPS, 4.092 Msps
-GLONASS) go through the decimating front end (``--sample-rate``,
-``--glonass-rate``, ``--format`` or the sidecar).
+The JAX CLI's other sub-commands (rtk, bench) and the replay flags for
+RINEX/NMEA export, the web UI and assisted start are not ported yet
+(ROADMAP.md). Captures at other rates than the band's processing rate
+(2.046 Msps GPS, 4.092 Msps GLONASS) go through the decimating front end
+(``--sample-rate``, ``--glonass-rate``, ``--format`` or the sidecar), then
+through the notch when ``--notch`` asks for it. ``synth`` runs on the host
+(numpy) and needs no card.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import sys
 from gypsum_tpu_torch.cli.acquire import cmd_acquire
 from gypsum_tpu_torch.cli.replay import cmd_replay
 from gypsum_tpu_torch.cli.sources import _add_file_source_args
+from gypsum_tpu_torch.cli.synth import cmd_synth
 
 
 def main(argv=None) -> int:
@@ -98,6 +104,92 @@ def main(argv=None) -> int:
                    help="coarse GPS time prior (seconds of week, ~1 min basin)")
     _add_file_source_args(p)
     p.set_defaults(fn=cmd_acquire)
+
+    p = sub.add_parser("synth", help="generate a synthetic multi-SV capture")
+    p.add_argument("--out", required=True, help=".npy or raw interleaved f32 (+.json sidecar)")
+    p.add_argument("--duration", type=float, default=40.0)
+    p.add_argument("--rate", type=float, default=2.046e6)
+    p.add_argument("--noise", type=float, default=0.35)
+    p.add_argument("--prns", nargs="*")
+    p.add_argument("--lat", type=float, default=51.5)
+    p.add_argument("--lon", type=float, default=-0.1)
+    p.add_argument("--alt", type=float, default=80.0)
+    p.add_argument("--vel", default=None,
+                   help='receiver ECEF velocity "vx,vy,vz" in m/s (default static)')
+    p.add_argument("--no-tropo", action="store_true",
+                   help="omit the (default) Saastamoinen tropospheric delay")
+    p.add_argument("--bandwidth", type=float, default=None,
+                   help="front-end low-pass cutoff in Hz (RF impairment)")
+    p.add_argument("--phase-noise", type=float, default=None,
+                   help="TCXO phase-noise random walk in rad/sqrt(s)")
+    p.add_argument("--multipath", type=float, default=None,
+                   help="one multipath ray at this excess delay (seconds)")
+    p.add_argument("--adc-bits", type=int, default=None,
+                   help="quantize the capture to this many ADC bits per component")
+    p.add_argument("--cw", type=float, default=None, metavar="AMPLITUDE",
+                   help="inject a CW jammer of this amplitude (satellites are "
+                        "~1, noise sigma ~0.3; try 10-30 — then replay with "
+                        "--notch)")
+    p.add_argument("--cw-freq", type=float, default=257e3,
+                   help="jammer baseband offset in Hz")
+    p.add_argument("--cw-chirp", type=float, default=0.0,
+                   help="jammer sweep rate in Hz/s (swept interference)")
+    p.add_argument("--sbas", type=int, nargs="?", const=120, default=None,
+                   metavar="PRN",
+                   help="add an SBAS GEO (PRN 120-138; replay it with "
+                        "--prns <gps...> <PRN> to widen the search family)")
+    p.add_argument("--rover-out", default=None,
+                   help="also write a second capture of the same scene from "
+                        "an offset receiver (the `rtk` subcommand's input)")
+    p.add_argument("--rover-enu", default=None, metavar="E,N,U",
+                   help='rover offset from the base in meters, e.g. "12,-5,0"')
+    p.add_argument("--rover-clock-offset", type=float, default=0.0,
+                   help="rover sampling starts this many seconds later in GPS "
+                        "time (independent clock; pair with `rtk "
+                        "--independent-clocks`)")
+    p.add_argument("--start-sow", type=float, default=None,
+                   help="GPS seconds-of-week of the scene start (default "
+                   "21600; --glonass-out defaults to 21618 so a GLONASS "
+                   "frame boundary lands at t=0)")
+    p.add_argument("--array-out", default=None, metavar="PATH",
+                   help="also write an [elements, samples] .npy antenna-array "
+                        "capture of the scene (signal/array.py) — the input "
+                        "for `acquire/replay --beamform` CRPA jammer nulling")
+    p.add_argument("--array-spacing", type=float, default=None, metavar="M",
+                   help="array element spacing in meters (default L1 "
+                        "half-wavelength, ~0.095 m; 4-element square)")
+    p.add_argument("--jam", type=float, default=None, metavar="AMPLITUDE",
+                   help="arrayed interferer amplitude entering --array-out "
+                        "(kind/direction below); unlike --cw this one has a "
+                        "DIRECTION, so the CRPA can null it")
+    p.add_argument("--jam-kind", default="noise", choices=("noise", "cw"),
+                   help="arrayed interferer kind: broadband noise (the kind "
+                        "--notch cannot excise) or a CW tone")
+    p.add_argument("--jam-azel", default="135,5", metavar="AZ,EL",
+                   help="arrayed interferer direction (deg az clockwise from "
+                        "north, deg elevation; default a terrestrial 135,5)")
+    p.add_argument("--glonass-out", default=None, metavar="PATH",
+                   help="also write the scene's GLONASS L1OF band (a second "
+                   "front end at 1602 MHz) to this path")
+    p.add_argument("--glonass-ks", nargs="*", default=None,
+                   help="GLONASS FDMA frequency numbers to put on air "
+                   "(default -2 -1 0 1 2)")
+    p.add_argument("--glonass-rate", type=float, default=4.092e6)
+    p.add_argument("--glonass-l2-out", default=None, metavar="PATH",
+                   help="also write the GLONASS scene's L2OF band (1246 MHz "
+                   "front end, .npy) — the dual-frequency capture pair for "
+                   "replay --glonass-l2-file (requires --glonass-out)")
+    p.add_argument("--iono", action="store_true",
+                   help="inject a daytime Klobuchar ionosphere into every "
+                   "band (GPS satellites broadcast the page-18 parameters; "
+                   "GLONASS bands carry the (f_l1/f)^2-scaled group delay)")
+    p.add_argument("--glonass-time-offset", type=float, default=8e-7,
+                   help="residual GPS->GLONASS time offset (s) the dual-band "
+                   "receiver must solve (default 800 ns)")
+    p.add_argument("--rover-clock-drift", type=float, default=0.0,
+                   help="rover fractional oscillator frequency error "
+                        "(e.g. 2e-8)")
+    p.set_defaults(fn=cmd_synth)
 
     args = parser.parse_args(argv)
     return args.fn(args)

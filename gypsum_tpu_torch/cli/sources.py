@@ -5,8 +5,10 @@ captures described by a ``.json`` sidecar or a named ``--format`` (GPS L1),
 and the GLONASS band front end (``_open_glonass_source``). A capture at
 another rate than the band's processing rate (2.046 Msps for GPS, 4.092
 Msps for GLONASS) goes through the decimating front end on the chosen
-device. The interference notch and the antenna-array beamformer are not
-ported yet (they raise).
+device. ``--beamform`` nulls jammers in an [elements, samples] array
+capture (ops/beamform.py, the contraction on the device) and ``--notch``
+excises narrowband interference after decimation (ops/interference.py, on
+the device).
 """
 
 from __future__ import annotations
@@ -17,8 +19,6 @@ import logging
 import pathlib
 
 import numpy as np
-
-from gypsum_tpu_torch.core.unported import unported
 
 _logger = logging.getLogger("gypsum_tpu_torch")
 
@@ -38,6 +38,17 @@ def _add_file_source_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--format", default=None,
                    help="named capture format (gnu_radio_2x/8x/16x, rtl_sdr, hackrf) "
                    "instead of a sidecar (reference: radio_input.py INPUT_SOURCES)")
+    p.add_argument("--notch", action="store_true",
+                   help="excise narrowband interference (CW jammers, "
+                        "harmonics) from each block with the STFT spectral "
+                        "mask before processing (ops/interference.py)")
+    p.add_argument("--beamform", action="store_true",
+                   help="input is an [elements, samples] .npy antenna-array "
+                        "capture (synth --array-out): null jammers — "
+                        "including BROADBAND ones --notch cannot touch — "
+                        "with the blind power-inversion CRPA beamformer "
+                        "(ops/beamform.py), then process the single "
+                        "beamformed stream normally")
 
 
 def _open_source(args):
@@ -70,7 +81,41 @@ def _open_source(args):
             else:
                 rate = PROCESSING_RATE
         if iq.ndim == 2:
-            raise unported("antenna-array captures (ops/beamform)")
+            # [N_elements, T] antenna-array capture (synth --array-out).
+            if not getattr(args, "beamform", False):
+                raise SystemExit(
+                    f"{args.file} is an {iq.shape[0]}-element array capture; "
+                    "process it with --beamform (blind power-inversion CRPA, "
+                    "ops/beamform.py) or index one element out yourself"
+                )
+            from gypsum_tpu_torch.ops.beamform import (
+                estimate_doa,
+                null_jammers,
+                spatial_covariance,
+            )
+
+            raw = iq
+            iq, w, supp = null_jammers(raw, device=args.device)
+            _logger.info(
+                "beamform: power-inversion weights over %d elements, "
+                "%.1f dB interference suppression (|w| = %s)",
+                len(w), supp, np.round(np.abs(w), 3).tolist(),
+            )
+            sidecar = pathlib.Path(args.file + ".json")
+            if supp > 3.0 and sidecar.exists():
+                meta = json.loads(sidecar.read_text())
+                if "elements_enu" in meta:
+                    # Locate what was just nulled (MUSIC over the unloaded
+                    # covariance): alerts with a bearing.
+                    r = spatial_covariance(raw[:, :65536], diagonal_loading=0.0)
+                    for az, el, p_db in estimate_doa(r, np.asarray(meta["elements_enu"])):
+                        _logger.warning(
+                            "interference bearing: azimuth %.0f deg, "
+                            "elevation %.0f deg (MUSIC peak %.0f dB)",
+                            az, el, p_db,
+                        )
+        elif getattr(args, "beamform", False):
+            raise SystemExit("--beamform needs a 2-D [elements, samples] .npy capture")
         source = ArraySampleSource(iq, rate)
     else:
         if getattr(args, "format", None):
@@ -87,6 +132,10 @@ def _open_source(args):
     # Non-native rates go through the decimating/resampling front end.
     if abs(source.attributes.sample_rate - PROCESSING_RATE) > 1e-6:
         source = DecimatingSampleSource(source, PROCESSING_RATE, device=args.device)
+    if getattr(args, "notch", False):
+        from gypsum_tpu_torch.io.sources import NotchingSampleSource
+
+        source = NotchingSampleSource(source, device=args.device)
     return source
 
 

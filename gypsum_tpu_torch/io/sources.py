@@ -15,8 +15,8 @@ re-designed for block-based device dispatch:
   integer ratios through the hand-written decimation kernel
   (ops/fir_decimate.py), rational ratios through the plain polyphase
   resampler (ops/decimate.py);
-- the notching front end (NotchingSampleSource) is not ported yet and
-  raises.
+- the notching front end (NotchingSampleSource) runs the STFT notch on the
+  device (ops/interference.py), numpy blocks in and out.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import numpy as np
 
 from gypsum_tpu_torch.core.constants import PRN_REPETITIONS_PER_SECOND
 from gypsum_tpu_torch.core.events import NoMoreSamplesError
-from gypsum_tpu_torch.core.unported import unported
 
 _logger = logging.getLogger(__name__)
 
@@ -403,11 +402,96 @@ class DecimatingSampleSource(SampleSource):
 
 
 class NotchingSampleSource(SampleSource):
-    """Interference-excision front end (STFT spectral mask). Not ported yet:
-    its notch lives in ops/interference."""
+    """Interference-excision front end: wraps any source and removes
+    narrowband interference (CW jammers, harmonics, DC ridges) from each
+    block with the STFT spectral mask in ops/interference.py. Detection
+    events are kept in ``events`` (stream time, NotchReport) and summarized
+    by ``interference_seconds``.
 
-    def __new__(cls, *args, **kwargs):
-        raise unported("the interference notch (ops/interference)")
+    The notch runs on ``device``: each block is uploaded, transformed, and
+    its mask and statistics read back; only a block that is excised goes
+    through the inverse FFT and comes back down. A block with nothing to
+    excise (nothing detected, or a mask wider than ``max_fraction``) is
+    returned untouched. The JAX package runs the same math in numpy on the
+    host (``stft_notch_np``), which the tests hold this source to.
+    """
+
+    def __init__(
+        self,
+        inner: SampleSource,
+        nfft: int = 4096,
+        threshold: float = 8.0,
+        guard_bins: int = 2,
+        max_fraction: float = 0.05,
+        device: str = "cuda",
+    ) -> None:
+        from gypsum_tpu_torch.core.device import resolve_device
+
+        self.device = resolve_device(device)
+        self.inner = inner
+        self.nfft = int(nfft)
+        self.threshold = float(threshold)
+        self.guard_bins = int(guard_bins)
+        self.max_fraction = float(max_fraction)
+        self.events: list[tuple[float, "object"]] = []  # (t, NotchReport)
+        self.last_report = None
+        self._notches: dict = {}  # block length -> StftNotch
+
+    @property
+    def attributes(self) -> StreamAttributes:
+        return self.inner.attributes
+
+    @property
+    def seconds_consumed(self) -> float:
+        return self.inner.seconds_consumed
+
+    def _notch(self, n: int):
+        from gypsum_tpu_torch.ops.interference import make_stft_notch
+
+        if n not in self._notches:
+            self._notches[n] = make_stft_notch(
+                n, self.attributes.sample_rate, nfft=self.nfft, threshold=self.threshold,
+                guard_bins=self.guard_bins, max_fraction=self.max_fraction, device=self.device)
+        return self._notches[n]
+
+    def _process(self, ts: float, block: np.ndarray, record: bool) -> np.ndarray:
+        import torch
+
+        notch = self._notch(block.size)
+        x = torch.from_numpy(np.ascontiguousarray(block, dtype=np.complex64).ravel())
+        spec, mask, stats = notch.detect(x.to(self.device))
+        host = torch.cat([mask, stats]).cpu().numpy()  # one read-back
+        stats_h = host[self.nfft :]
+        report = notch.report(host[: self.nfft], stats_h)
+        clean = block
+        if stats_h[2] > 0:
+            clean = notch.excise(spec, mask).cpu().numpy().reshape(block.shape)
+        if record:
+            self.last_report = report
+            if report.detected:
+                self.events.append((ts, report))
+                _logger.info(
+                    "[%7.1fs] interference: %d/%d bins %.1f dB over the "
+                    "floor at %s Hz — %s",
+                    ts, report.n_bins, self.nfft, report.peak_over_median_db,
+                    [f"{f:.0f}" for f in report.freqs_hz[:4]],
+                    "excised" if report.fraction <= self.max_fraction
+                    else "TOO WIDE, passed through",
+                )
+        return clean
+
+    @property
+    def interference_seconds(self) -> float:
+        """Stream seconds on which interference was detected (1 block ~ 1 s)."""
+        return float(len(self.events))
+
+    def peek_block(self, n_ms: int) -> tuple[float, np.ndarray]:
+        ts, block = self.inner.peek_block(n_ms)
+        return ts, self._process(ts, block, record=False)
+
+    def read_block(self, n_ms: int) -> tuple[float, np.ndarray]:
+        ts, block = self.inner.read_block(n_ms)
+        return ts, self._process(ts, block, record=True)
 
 
 class StreamBuffer:

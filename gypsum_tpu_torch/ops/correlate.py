@@ -10,9 +10,10 @@ reference: gypsum/utils.py:59-108):
   place, so peak memory stays at [S, D, L] instead of [S, D, M, L].
 - Phases stay exact in float32: the wipeoff phasor is built from per-ms
   phase offsets reduced mod one cycle, never from absolute stream time.
-
-The circulant-matmul sweep of the JAX package is a TPU design (a 256 MB
-bf16 table fed to the MXU); it is not ported yet (ROADMAP.md).
+- The circulant-matmul sweep evaluates the same grid as bf16 products
+  against [L, L] circulant replica tables (268 MB for 32 PRNs at L = 2046),
+  built on the device; on the card the products run on the tensor cores
+  with a float32 result.
 """
 
 from __future__ import annotations
@@ -145,3 +146,62 @@ def lag_window_correlate(
     length = samples.shape[-1]
     window = rolled_lag_window(replica_tiled, code_phase, half_width, length)
     return window.to(samples.dtype) @ samples
+
+
+def build_circulant_table(
+    replica_rows: np.ndarray | torch.Tensor,  # [S, L] float32 +/-1
+    device: str | torch.device,
+) -> torch.Tensor:
+    """[S, L, L] bfloat16 circulant tables C_s[l, tau] = r_s[(l - tau) mod L]
+    built on ``device`` from the replica rows (+/-1 chips are bf16-exact).
+
+    Row j of ``tiled.unfold(0, L, 1)`` is tiled[j : j + L]; its element l is
+    r[(j + l) mod L], so row L - tau is column tau of C. One satellite's
+    table is the flipped view's first L rows, transposed: no [S, L, L] index
+    is ever formed."""
+    if not isinstance(replica_rows, torch.Tensor):  # numpy tables may be read-only
+        replica_rows = torch.tensor(np.asarray(replica_rows, dtype=np.float32))
+    rows = replica_rows.to(device=device, dtype=torch.float32)
+    s_count, length = rows.shape
+    table = torch.empty((s_count, length, length), dtype=torch.bfloat16, device=rows.device)
+    for s in range(s_count):
+        tiled = torch.cat([rows[s], rows[s]]).to(torch.bfloat16)  # [2L]
+        windows = tiled.unfold(0, length, 1)  # [L + 1, L], row j = tiled[j : j + L]
+        table[s] = windows.flip(0)[:length].transpose(0, 1)  # [l, tau] = windows[L - tau, l]
+    return table
+
+
+def noncoherent_acquisition_sweep_matmul(
+    samples_ms: torch.Tensor,  # [M, L] complex64
+    dopplers: torch.Tensor,  # [D] float32
+    table: torch.Tensor,  # [S, L, L] bfloat16 (build_circulant_table)
+    sample_rate: float,
+) -> torch.Tensor:
+    """Same contract as :func:`noncoherent_acquisition_sweep` (returns
+    [S, D, L] summed |correlation|), evaluated as products of the
+    Doppler-wiped rows [D*M, L] with each satellite's circulant.
+
+    The real and imaginary planes are rounded to bf16 and stacked into one
+    [2*D*M, L] operand. On the card one batched product over the satellites
+    (the operand broadcast, not copied) runs on the tensor cores with a
+    float32 result, 2 x S x D*M x L x 4 bytes (152 MB at the GPS grid). On
+    the CPU, whose bf16 product returns bf16, each satellite's table is
+    widened to float32 in turn and multiplied in float32: the same
+    bf16-in / float32-out product."""
+    m_count, length = samples_ms.shape
+    d_count = dopplers.shape[0]
+    shifted = doppler_wipeoff(samples_ms, dopplers, sample_rate).reshape(-1, length)
+    z = torch.cat([shifted.real, shifted.imag]).to(torch.bfloat16)  # [2*D*M, L]
+    rows = d_count * m_count
+
+    def magnitude(c: torch.Tensor) -> torch.Tensor:  # [..., 2*D*M, L] -> [..., D, L]
+        cr, ci = c[..., :rows, :], c[..., rows:, :]
+        mag = torch.sqrt(cr * cr + ci * ci)
+        return mag.reshape(*mag.shape[:-2], d_count, m_count, length).sum(dim=-2)
+
+    if table.is_cuda:
+        s_count = table.shape[0]
+        c = torch.bmm(z.expand(s_count, -1, -1), table, out_dtype=torch.float32)
+        return magnitude(c)
+    z = z.to(torch.float32)
+    return torch.stack([magnitude(z @ t.to(torch.float32)) for t in table])

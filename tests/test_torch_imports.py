@@ -116,7 +116,20 @@ def _build_receiver():
     return Receiver(ArraySampleSource(np.zeros(2046 * 20, np.complex64), 2.046e6))
 
 
-@pytest.mark.parametrize("build", [_build_acquisition, _build_bank, _build_receiver])
+def _build_notching_source():
+    from gypsum_tpu_torch.io.sources import ArraySampleSource, NotchingSampleSource
+
+    return NotchingSampleSource(ArraySampleSource(np.zeros(2046 * 20, np.complex64), 2.046e6))
+
+
+def _null_jammers():
+    from gypsum_tpu_torch.ops.beamform import null_jammers
+
+    return null_jammers(np.ones((4, 2046), np.complex64))
+
+
+@pytest.mark.parametrize("build", [_build_acquisition, _build_bank, _build_receiver,
+                                   _build_notching_source, _null_jammers])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(build):
     _needs_no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -145,10 +158,24 @@ def test_chip_smoke_fails_without_a_card():
 
 @pytest.mark.parametrize("name", ["NotchingSampleSource"])
 def test_unported_front_ends_raise(name):
+    """The front end that used to raise "not ported" now opens and excises:
+    a 12-amplitude tone at 257 kHz over noise is found and notched, and the
+    block comes back at the noise floor away from its ends (the edge frames
+    keep the truncated tone's transient, tests/test_interference.py:55-58)."""
     from gypsum_tpu_torch.io import sources
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(sources, name)(sources.ArraySampleSource(np.zeros(2046, np.complex64), 2.046e6), 2.046e6)
+    rng = np.random.default_rng(2)
+    n = 2046 * 20
+    noise = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.3).astype(np.complex64)
+    tone = 12.0 * np.exp(2j * np.pi * 257e3 * np.arange(n) / 2.046e6)
+    src = getattr(sources, name)(sources.ArraySampleSource((noise + tone).astype(np.complex64),
+                                                           2.046e6), device="cpu")
+    assert src.attributes == sources.StreamAttributes(2.046e6, 2046)
+    ts, block = src.read_block(20)
+    assert ts == 0.0 and block.shape == (20, 2046) and block.dtype == np.complex64
+    assert src.interference_seconds == 1.0 and src.last_report.n_bins > 0
+    inner = slice(2 * 4096, n - 2 * 4096)
+    assert np.mean(np.abs(block.ravel()[inner]) ** 2) < 1.1 * np.mean(np.abs(noise[inner]) ** 2)
 
 
 def test_decimating_source_opens_and_reads_a_fast_capture():
