@@ -110,10 +110,25 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    tests/test_beamform.py through ``null_jammers`` (> 15 dB, the
    contraction against numpy's), the default receiver (within 15 m) and
    ``replay --beamform`` (the MUSIC bearing within 4 deg);
-10. a ``{"kernels": [...]}`` line with each kernel's launches, error and
+10. the rtk entry point and the replay's exports (``run_rtk``): the static
+   pair of tests/test_rtk.py:223-270 (six PRNs, the rover 13.46 m away;
+   24 s read of a 60 s pair, so that the base decodes its orbits) through
+   ``python -m gypsum_tpu_torch rtk`` in this process, static,
+   ``--kinematic`` and ``--attitude`` (that file's and
+   tests/test_attitude.py's bars), the rover on its own clock with
+   ``--independent-clocks`` (the offset within 0.5 us, the drift within
+   2e-9), RINEX mode on the 60 s pair's ``replay --rinex-obs`` exports;
+   K1's launches around each capture-mode run equal to the blocks its two
+   receivers dispatch, each receiver's wall, the phase logs' pin residual
+   and arcs, and the host ms of each solve stage; then the 23 s scene's
+   ``--rinex-obs --rinex-nav --nmea-out`` files (tests/test_rinex.py's
+   bars, one GGA per FIX line) and ``--assist-nav --assist-time`` on the
+   pair's base (tests/test_assist.py's bars);
+11. a ``{"kernels": [...]}`` line with each kernel's launches, error and
    both times beside its bound, and an entry per kernel at its GLONASS
-   inputs (launches from the GLONASS replays) and at the deep sweep's;
-11. last line: ``{"ok": true, "device": {...}}``.
+   inputs (launches from the GLONASS replays) and at the deep sweep's; K1's
+   entry carries its launches per ``rtk`` run (``rtk_launches``);
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 It exits with an error at once when no CUDA device is present.
@@ -132,6 +147,7 @@ card.
 from __future__ import annotations
 
 import ctypes
+import datetime
 import inspect
 import json
 import logging
@@ -1145,6 +1161,8 @@ def synthesize_named(name: str) -> np.ndarray:
                                          DEMO_GPS_START_SOW, 25.0, FS, noise_sigma=0.25)
         return apply_rf_impairments(iq, FS, RfImpairments(cw_amplitude=NOTCH_CW[0],
                                                           cw_freq_hz=NOTCH_CW[1]))
+    if name.startswith("rtk_"):
+        return synthesize_rtk(name)
     if name == "array":
         from gypsum_tpu_torch.signal.array import ArrayJammer, synthesize_array
 
@@ -1153,6 +1171,34 @@ def synthesize_named(name: str) -> np.ndarray:
         return synthesize_array(demo_constellation(SCENE_PRNS), lla_to_ecef(*TRUTH_LLA),
                                 DEMO_GPS_START_SOW, 23.0, FS, noise_sigma=0.3, jammer=jam)[0]
     raise ValueError(f"no scene {name!r}")
+
+
+RTK_PRNS = [25, 28, 31, 32, 3, 7]  # signal/scenarios.py:DEMO_PRNS_8[:6]
+RTK_ENU = (11.0, -7.5, 2.0)  # tests/test_rtk.py:246: the rover's offset from the base, m
+RTK_SECONDS = 24.0  # the capture-mode runs (--duration): ~19-20 s to decode the orbits
+RTK_EXPORT_SECONDS = 60.0  # the RINEX-mode pair: ~40 exported epochs for the fix
+RTK_CLOCK = (2.37e-3, 2e-8)  # tests/test_rtk.py:410-411: the rover's start offset s, drift
+
+
+def synthesize_rtk(name: str) -> np.ndarray:
+    """The rtk pairs of tests/test_rtk.py:223-270 and :386-449 (the six
+    demo PRNs, noise 0.25, the base at ``TRUTH_LLA``): the base and the
+    rover at ``RTK_ENU`` for ``RTK_EXPORT_SECONDS`` (the capture-mode runs
+    read their first ``RTK_SECONDS``, which equal a capture of that length),
+    and the rover on its own clock for ``RTK_SECONDS``."""
+    from gypsum_tpu_torch.signal.constellation import synthesize_constellation
+    from gypsum_tpu_torch.signal.scenarios import DEMO_GPS_START_SOW, demo_constellation
+    from gypsum_tpu_torch.solve.geodesy import enu_basis, lla_to_ecef
+
+    base = lla_to_ecef(*TRUTH_LLA)
+    rover = base + np.asarray(RTK_ENU) @ np.stack(enu_basis(base))
+    rx, sow, seconds, drift = {
+        "rtk_base": (base, DEMO_GPS_START_SOW, RTK_EXPORT_SECONDS, 0.0),
+        "rtk_rover": (rover, DEMO_GPS_START_SOW, RTK_EXPORT_SECONDS, 0.0),
+        "rtk_clock": (rover, DEMO_GPS_START_SOW + RTK_CLOCK[0], RTK_SECONDS, RTK_CLOCK[1]),
+    }[name]
+    return synthesize_constellation(demo_constellation(RTK_PRNS), rx, sow, seconds, FS,
+                                    noise_sigma=0.25, receiver_clock_drift=drift)[0]
 
 
 def synthesize_to(name: str, path: str) -> float:
@@ -2400,6 +2446,314 @@ def run_beamform(dev, scenes: "Scenes") -> None:
         f"launches {n}")
 
 
+class RtkInstruments:
+    """While active: each ``Receiver.run`` timed (synchronized) with the
+    blocks it dispatched, and the host ms of each solve stage of
+    solve/rtk.py and solve/attitude.py, with its last result. The rtk CLI
+    imports these functions when it runs, so it calls the wrapped ones."""
+
+    STAGES = {"rtk": ["form_double_differences", "dd_from_rinex", "solve_baseline",
+                      "integer_least_squares", "bootstrap_success_rate", "solve_kinematic",
+                      "estimate_stream_alignment"],
+              "attitude": ["solve_attitude"]}
+
+    def __init__(self) -> None:
+        self.ms: dict[str, list[float]] = {}
+        self.result: dict[str, object] = {}
+        self.args: dict[str, tuple] = {}
+        self.runs: list[tuple[float, int]] = []  # (wall s, blocks) per receiver run
+        self.logs: list = []  # the run's CarrierPhaseLogs, base first
+        self._saved = []
+
+    def _wrap(self, owner, name: str) -> None:
+        fn = getattr(owner, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.ms.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
+            self.result[name], self.args[name] = out, (args, kw)
+            return out
+
+        self._saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+
+    def __enter__(self):
+        import gypsum_tpu_torch.solve.attitude as attitude
+        import gypsum_tpu_torch.solve.rtk as rtk
+        from gypsum_tpu_torch.runtime.receiver import Receiver
+
+        for module, names in ((rtk, self.STAGES["rtk"]), (attitude, self.STAGES["attitude"])):
+            for name in names:
+                self._wrap(module, name)
+        logs = self.logs
+
+        class KeptLog(rtk.CarrierPhaseLog):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                logs.append(self)
+
+        self._saved.append((rtk, "CarrierPhaseLog", rtk.CarrierPhaseLog))
+        rtk.CarrierPhaseLog = KeptLog
+        run = Receiver.run
+
+        def timed_run(recv, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(recv, *args, **kw)
+            torch.cuda.synchronize()
+            self.runs.append((time.perf_counter() - t0, round(recv.source.seconds_consumed)))
+            return out
+
+        self._saved.append((Receiver, "run", run))
+        Receiver.run = timed_run
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+    def stage_line(self) -> str:
+        """Host ms of each stage this run called. The float solve is inline
+        in ``solve_baseline``, so it is run again 7 times in turns with the
+        full solve on the same inputs: the least time of ``fix=False`` is
+        the float solve, the rest of the full solve's least time the integer
+        step (the ILS search and the bootstrap bound, timed in the run, and
+        the fixed solve)."""
+        parts = [f"{k} {sum(v):.2f}" for k, v in self.ms.items() if k != "solve_baseline"]
+        if "solve_baseline" in self.ms:
+            import gypsum_tpu_torch.solve.rtk as rtk
+
+            args, kw = self.args["solve_baseline"]
+            least = {False: np.inf, True: np.inf}
+            for _ in range(7):
+                for fix in least:
+                    t0 = time.perf_counter()
+                    rtk.solve_baseline(*args, **{**kw, "fix": fix})
+                    least[fix] = min(least[fix], 1e3 * (time.perf_counter() - t0))
+            parts += [f"solve_baseline {sum(self.ms['solve_baseline']):.2f} (again, least of 7: "
+                      f"{least[True]:.2f}, of which the float solve {least[False]:.2f} and the "
+                      f"integer step {least[True] - least[False]:.2f})"]
+        return "host ms: " + ", ".join(parts)
+
+
+def rtk_cli(label: str, *argv: str, blocks: int) -> tuple[str, "RtkInstruments"]:
+    """``python -m gypsum_tpu_torch rtk ...`` in this process, K1's launches
+    counted around it and held to the blocks its two receivers dispatched
+    (``blocks``; none in RINEX mode), K3 and K4 held at 0."""
+    with RtkInstruments() as inst:
+        reset_launches()
+        out, wall = run_cli_here(*argv, command="rtk")
+        n = launches()
+    dispatched = sum(b for _, b in inst.runs)
+    if dispatched != blocks or n["K1"] != blocks or n["K3"] or n["K4"]:
+        raise AssertionError(f"rtk {label}: receivers dispatched {dispatched} blocks (want "
+                             f"{blocks}), launches {n}:\n{out[-2000:]}")
+    # The phase logs rebuild each ms's unwrapped phase from the tracker's
+    # exported values (bf16 phase-1 operands here): the pin residual stays
+    # at float32 rounding, and every PRN keeps one arc across the blocks
+    # (tests/test_rtk.py:143, :148).
+    arcs = [{p: len(a) for p, a in lg.arcs.items()} for lg in inst.logs]
+    pins = [lg.max_pin_residual_rad for lg in inst.logs]
+    if any(pin >= 0.5 for pin in pins) or any(set(a.values()) != {1} for a in arcs):
+        raise AssertionError(f"rtk {label}: pin residuals {pins} rad, arcs per PRN {arcs}")
+    runs = ", ".join(f"{w:.2f} s for {b} blocks" for w, b in inst.runs)
+    logs = (f"; phase logs: pin residual {', '.join(f'{p:.2e}' for p in pins)} rad, one arc per "
+            f"PRN ({len(arcs[0])} PRNs)" if inst.logs else "")
+    log(f"rtk {label} (in process): {wall:.2f} s wall; receivers {runs or 'none'}; launches "
+        f"{n}{logs}; {inst.stage_line()}; {SMI[0]}")
+    return out, inst
+
+
+def run_rtk(dev, scenes: "Scenes", k1: dict) -> None:
+    """The rtk entry point on the card, with the JAX tests' bars: the static
+    pair (tests/test_rtk.py:223-270; the CLI needs the base's decoded orbits,
+    so RTK_SECONDS of it) static, ``--kinematic`` and ``--attitude`` (the
+    pair's own separation; tests/test_attitude.py:201-205's bars at the
+    headings the ENU truth implies), the independent-clock pair
+    (:386-449), and RINEX mode on the pair's ``replay --rinex-obs`` exports
+    (RTK_EXPORT_SECONDS, ~40 epochs: tests/test_rinex.py's solve fixes on
+    40) with a NAV file of its six orbits. K1's launches are counted around
+    each capture-mode run (``k1["rtk_launches"]``). Then the exports of the
+    23 s GPS scene (tests/test_rinex.py:141-200's bars on the OBS file, one
+    GGA per FIX line) and the assisted start on the pair's base
+    (tests/test_assist.py:101-157's bars) with the NAV file its own export
+    replay decoded."""
+    from gypsum_tpu_torch.obs import nmea
+    from gypsum_tpu_torch.obs.rinex import parse_nav, parse_obs, render_nav
+    from gypsum_tpu_torch.signal.constellation import synthesize_constellation
+    from gypsum_tpu_torch.signal.scenarios import (
+        DEMO_EPHEMERIDES,
+        DEMO_GPS_START_SOW,
+        DEMO_PRNS_8,
+        demo_constellation,
+    )
+    from gypsum_tpu_torch.solve.ephemeris import satellite_position
+    from gypsum_tpu_torch.solve.geodesy import enu_basis, lla_to_ecef
+
+    base = lla_to_ecef(*TRUTH_LLA)
+    east, north, up = enu_basis(base)
+    truth = np.asarray(RTK_ENU) @ np.stack((east, north, up))
+    lla = [str(v) for v in TRUTH_LLA]
+    for name in ("rtk_base", "rtk_rover", "rtk_clock"):
+        scenes.get(name)  # synthesized: the CLI reads the files
+    pair = ["--base-file", str(scenes.path("rtk_base")), "--rover-file",
+            str(scenes.path("rtk_rover")), "--base-lla", *lla, "--duration", f"{RTK_SECONDS:g}"]
+    blocks = 2 * round(RTK_SECONDS)
+
+    def enu_err(b) -> float:
+        return float(np.linalg.norm(np.asarray(b) - truth))
+
+    # Static: tests/test_rtk.py:264-270.
+    out, inst = rtk_cli("static", *pair, blocks=blocks)
+    sol = inst.result["solve_baseline"]
+    err_f, err_x = enu_err(sol.baseline_float_m), enu_err(sol.baseline_fixed_m)
+    if not (sol.fixed and sol.ratio >= 2.0 and err_x < 0.010 and err_f < 0.5
+            and sol.phase_rms_half_cycles < 0.02):
+        raise AssertionError(f"rtk static: fixed {sol.fixed}, ratio {sol.ratio:.2f}, fixed "
+                             f"{1e3 * err_x:.1f} mm, float {err_f:.3f} m, phase RMS "
+                             f"{sol.phase_rms_half_cycles:.4f}:\n{out}")
+    log(f"rtk static: FIXED, ratio {sol.ratio:.2f}, bootstrap {sol.bootstrap_success:.5f}, "
+        f"{sol.n_epochs} epochs; fixed {1e3 * err_x:.2f} mm from truth (bar 10), float "
+        f"{err_f:.3f} m (bar 0.5), phase RMS {sol.phase_rms_half_cycles:.4f} half-cycles "
+        f"(bar 0.02)")
+    k1["rtk_launches"] = blocks
+
+    # Kinematic: every epoch within 30 mm (tests/test_rtk.py:322-324).
+    out, inst = rtk_cli("--kinematic", *pair, "--kinematic", blocks=blocks)
+    sol = inst.result["solve_kinematic"]
+    errs = np.linalg.norm(sol.baselines_fixed_m - truth, axis=1) if sol.fixed else [np.inf]
+    if not sol.fixed or max(errs) >= 0.03:
+        raise AssertionError(f"rtk --kinematic: fixed {sol.fixed}, ratio {sol.ratio:.2f}, worst "
+                             f"epoch {max(errs):.4f} m:\n{out[-2000:]}")
+    log(f"rtk --kinematic: FIXED, ratio {sol.ratio:.2f}, {len(errs)} epochs, worst "
+        f"{1e3 * max(errs):.2f} mm, median {1e3 * np.median(errs):.2f} mm from truth (bar 30)")
+
+    # Attitude of the pair's own axis: tests/test_attitude.py:201-205.
+    separation = float(np.linalg.norm(RTK_ENU))
+    heading = float(np.degrees(np.arctan2(RTK_ENU[0], RTK_ENU[1])))
+    pitch = float(np.degrees(np.arctan2(RTK_ENU[2], np.hypot(RTK_ENU[0], RTK_ENU[1]))))
+    out, inst = rtk_cli("--attitude", *pair, "--attitude", f"{separation:.2f}", blocks=blocks)
+    sol = inst.result["solve_attitude"]
+    dh = float(np.max(np.abs((sol.heading_deg - heading + 180.0) % 360.0 - 180.0)))
+    dp = float(np.max(np.abs(sol.pitch_deg - pitch)))
+    if not (sol.fixed and sol.length_rms_m < 0.01 and dh < 0.12 and dp < 0.25):
+        raise AssertionError(f"rtk --attitude: fixed {sol.fixed}, length RMS "
+                             f"{sol.length_rms_m:.4f} m, heading {dh:.3f}, pitch {dp:.3f} deg off:"
+                             f"\n{out[-2000:]}")
+    log(f"rtk --attitude {separation:.2f}: FIXED by {sol.fixed_by}, ratio {sol.ratio:.2f}, "
+        f"length RMS {1e3 * sol.length_rms_m:.2f} mm (bar 10), heading within {dh:.4f} deg of "
+        f"{heading:.3f} (bar 0.12), pitch within {dp:.4f} deg of {pitch:.3f} (bar 0.25)")
+
+    # Independent clocks: tests/test_rtk.py:435-449.
+    out, inst = rtk_cli("--independent-clocks", "--base-file", str(scenes.path("rtk_base")),
+                        "--rover-file", str(scenes.path("rtk_clock")), "--base-lla", *lla,
+                        "--duration", f"{RTK_SECONDS:g}", "--independent-clocks", blocks=blocks)
+    align, sol = inst.result["estimate_stream_alignment"], inst.result["solve_baseline"]
+    d_off, d_drift = align.offset_s - RTK_CLOCK[0], align.drift + RTK_CLOCK[1]
+    err_x = enu_err(sol.baseline_fixed_m)
+    if not (abs(d_off) < 0.5e-6 and abs(d_drift) < 2e-9 and sol.fixed and err_x < 0.010):
+        raise AssertionError(f"rtk --independent-clocks: offset {align.offset_s!r}, drift "
+                             f"{align.drift!r}, fixed {sol.fixed}, {1e3 * err_x:.1f} mm:\n{out}")
+    log(f"rtk --independent-clocks: offset {1e6 * align.offset_s:.4f} us ({1e9 * d_off:+.1f} ns "
+        f"off, bar 500), drift {align.drift:.4e} ({d_drift:+.2e} off, bar 2e-9); FIXED, ratio "
+        f"{sol.ratio:.2f}, {1e3 * err_x:.2f} mm from truth (bar 10)")
+
+    # RINEX mode: the pair exported by replay, the NAV of its six orbits
+    # rendered as tests/test_rinex.py:92-140 does.
+    d = Path(scenes.directory)
+    files = {k: d / f"rtk.{k}" for k in ("base.obs", "rover.obs", "base.nav", "base.nmea",
+                                          "orbits.nav")}
+    for role, extra in (("base", ("--rinex-nav", str(files["base.nav"]), "--nmea-out",
+                                  str(files["base.nmea"]))), ("rover", ())):
+        reset_launches()
+        out, wall = run_cli_here("--file", str(scenes.path(f"rtk_{role}")), "--rinex-obs",
+                                 str(files[f"{role}.obs"]), *extra)
+        n = launches()
+        if n["K1"] != processed_blocks(out) or not files[f"{role}.obs"].exists():
+            raise AssertionError(f"replay --rinex-obs of the {role}: launches {n}:\n{out[-2000:]}")
+        log(f"replay --rinex-obs of the rtk {role} ({RTK_EXPORT_SECONDS:g} s): {wall:.2f} s wall; "
+            f"launches {n}; " + "; ".join(m for m in out.splitlines() if m.startswith("wrote")))
+    files["orbits.nav"].write_text(render_nav(
+        {p: DEMO_EPHEMERIDES[DEMO_PRNS_8.index(p)] for p in RTK_PRNS}))
+    out, inst = rtk_cli("RINEX mode", "--base-rinex", str(files["base.obs"]), "--rover-rinex",
+                        str(files["rover.obs"]), "--nav", str(files["orbits.nav"]),
+                        "--base-lla", *lla, blocks=0)
+    sol = inst.result["solve_baseline"]
+    err_x = enu_err(sol.baseline_fixed_m)
+    if not (sol.fixed and err_x < 0.010):
+        raise AssertionError(f"rtk RINEX mode: fixed {sol.fixed}, ratio {sol.ratio:.2f}, "
+                             f"{1e3 * err_x:.1f} mm:\n{out}")
+    log(f"rtk RINEX mode: FIXED, ratio {sol.ratio:.2f}, bootstrap {sol.bootstrap_success:.5f}, "
+        f"{sol.n_epochs} epochs, {1e3 * err_x:.2f} mm from truth (bar 10)")
+
+    # The 23 s GPS scene's exports: tests/test_rinex.py:141-200's bars.
+    gps = {k: d / f"gps.{k}" for k in ("obs", "nav", "nmea")}
+    reset_launches()
+    out, wall = run_cli_here("--file", str(scenes.path("gps")), "--rinex-obs", str(gps["obs"]),
+                             "--rinex-nav", str(gps["nav"]), "--nmea-out", str(gps["nmea"]))
+    n = launches()
+    eph = parse_nav(gps["nav"].read_text())
+    if sorted(eph) != sorted(SCENE_PRNS) or n["K1"] != processed_blocks(out):
+        raise AssertionError(f"gps exports: NAV holds {sorted(eph)}, launches {n}")
+    _, scene_truth = synthesize_constellation(demo_constellation(SCENE_PRNS), base, GPS_T0, 0.01,
+                                              FS, noise_sigma=0.0)
+    parsed = parse_obs(gps["obs"].read_text())
+    orbits = {p: DEMO_EPHEMERIDES[DEMO_PRNS_8.index(p)] for p in SCENE_PRNS}  # the truth
+    week = 2048 + orbits[SCENE_PRNS[0]].week_number
+    code_err, dop_err = 0.0, 0.0
+    for i, (when, rows) in enumerate(parsed.epochs):
+        sow = (when - datetime.datetime(1980, 1, 6)).total_seconds() - week * 7 * 86400.0
+        for prn, vals in rows.items():
+            rng = float(np.linalg.norm(satellite_position(orbits[prn], sow - 0.072) - base))
+            code_err = max(code_err, abs(vals["C1C"] - rng))
+            if i == 0:
+                dop_err = max(dop_err, abs(vals["D1C"] - scene_truth.doppler_hz[prn]))
+    lines = gps["nmea"].read_text().splitlines()
+    bad = [s for s in lines if nmea.checksum(s[1:].rsplit("*", 1)[0]) != s.rsplit("*", 1)[1]]
+    ggas = [nmea.parse_gga(s) for s in lines if s[3:6] == "GGA"]
+    fix_lines = [m for m in out.splitlines() if " FIX lat=" in m]
+    pos = [tuple(float(v) for v in FIX_LINE.search(m).groups()[:3]) for m in fix_lines]
+    off = [max(abs(g.lat_deg - p[0]), abs(g.lon_deg - p[1])) for g, p in zip(ggas, pos)]
+    alt = [abs(g.alt_m - p[2]) for g, p in zip(ggas, pos)]
+    if (not parsed.epochs or code_err >= 50.0 or dop_err >= 25.0 or bad
+            or len(ggas) != len(fix_lines) or not ggas or max(off) > 6e-7 or max(alt) > 0.55):
+        raise AssertionError(f"gps exports: {len(parsed.epochs)} epochs, C1C {code_err:.1f} m, "
+                             f"D1C {dop_err:.1f} Hz, {len(bad)} bad checksums, {len(ggas)} GGA "
+                             f"for {len(fix_lines)} FIX lines, offsets {off} {alt}")
+    log(f"replay --rinex-obs --rinex-nav --nmea-out of the 23 s GPS scene: {wall:.2f} s wall; "
+        f"launches {n}; NAV {len(eph)} ephemerides; OBS {len(parsed.epochs)} epochs, C1C within "
+        f"{code_err:.2f} m of the true range (bar 50), D1C within {dop_err:.2f} Hz (bar 25); "
+        f"{len(ggas)} GGA for {len(fix_lines)} FIX lines, within {max(off):.1e} deg and "
+        f"{max(alt):.2f} m of the printed fix, {len(lines)} sentences, every checksum valid")
+
+    # Assisted start on the pair's base: tests/test_assist.py:101-157.
+    assist = ("--file", str(scenes.path("rtk_base")), "--assist-nav", str(files["base.nav"]),
+              "--assist-time", f"{DEMO_GPS_START_SOW + 7.5}")
+    reset_launches()
+    out, wall = run_cli_here(*assist, "--until-fix")
+    n = launches()
+    first = next((m for m in out.splitlines() if re.search(r"\] (FIX|SNAPSHOT|COAST) lat=", m)),
+                 "")
+    m = re.search(r"\[\s*([\d.]+)s\] SNAPSHOT lat=(-?[\d.]+) lon=(-?[\d.]+) alt=(-?\d+)m", first)
+    err0 = float(np.linalg.norm(lla_to_ecef(*map(float, m.groups()[1:])) - base)) if m else np.inf
+    if m is None or float(m.group(1)) >= 5.0 or err0 >= 150.0:
+        raise AssertionError(f"assisted --until-fix: first fix {first!r}, {err0:.1f} m")
+    log(f"replay --assist-nav --assist-time {DEMO_GPS_START_SOW + 7.5} --until-fix: SNAPSHOT at "
+        f"{m.group(1)} s (bar 5), {err0:.2f} m from truth (bar 150); {wall:.2f} s wall; "
+        f"launches {n}")
+    out, wall = run_cli_here(*assist, "--duration", "14")
+    subframe_t = min(float(x) for x in re.findall(r"\[\s*([\d.]+)s\] PRN \d+ subframe", out))
+    lsq = [(float(t), lla_to_ecef(*map(float, v))) for t, *v in
+           re.findall(r"\[\s*([\d.]+)s\] FIX lat=(-?[\d.]+) lon=(-?[\d.]+) alt=(-?\d+)m", out)]
+    if not lsq or lsq[0][0] - subframe_t >= 2.5 or np.linalg.norm(lsq[-1][1] - base) >= 10.0:
+        raise AssertionError(f"assisted 14 s: subframe at {subframe_t}, lsq fixes "
+                             f"{[(t, np.linalg.norm(x - base)) for t, x in lsq]}")
+    log(f"replay --assist-nav --assist-time --duration 14: first subframe in the block from "
+        f"{subframe_t:.1f} s, first lsq FIX at {lsq[0][0]:.1f} s (bar 2.5 s after), last "
+        f"{np.linalg.norm(lsq[-1][1] - base):.2f} m from truth (bar 10); {wall:.2f} s wall")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -2430,7 +2784,8 @@ def main() -> int:
 # except the array scene (four syntheses of 23 s, the longest), which
 # starts first.
 SCENE_NAMES = ["gps", "array", "gps_8x", "fade", "glonass", "glonass_8x", "dual_gps",
-               "dual_glonass", "iono_l1", "iono_l2", "notch"]
+               "dual_glonass", "rtk_base", "rtk_rover", "iono_l1", "iono_l2", "notch",
+               "rtk_clock"]
 
 
 def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
@@ -2633,6 +2988,10 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     # The interference front ends: the STFT notch and the CRPA beamformer.
     run_notch(dev, scenes)
     run_beamform(dev, scenes)
+
+    # The rtk entry point (two receivers through K1 each, the host solve)
+    # and the replay's exports and assisted start.
+    run_rtk(dev, scenes, k1)
 
     log(f"total: {time.perf_counter() - T_START:.1f} s since the script started")
     log(SMI[0])  # again at the end, where a kept tail of the output still shows it

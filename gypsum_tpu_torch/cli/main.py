@@ -14,9 +14,19 @@ Usage:
     python -m gypsum_tpu_torch synth --out c.npy --array-out arr.npy --jam 6
     python -m gypsum_tpu_torch replay --file arr.npy --beamform --until-fix
 
-The JAX CLI's other sub-commands (rtk, bench) and the replay flags for
-RINEX/NMEA export, the web UI and assisted start are not ported yet
-(ROADMAP.md). Captures at other rates than the band's processing rate
+    python -m gypsum_tpu_torch replay --file capture.npy --rinex-obs run.obs \
+        --rinex-nav run.nav --nmea-out run.nmea
+    python -m gypsum_tpu_torch replay --file capture.npy --assist-nav run.nav \
+        --assist-time 21608 --until-fix
+    python -m gypsum_tpu_torch synth --out b.npy --duration 30 --prns 25 28 31 32 3 7 \
+        --rover-out r.npy --rover-enu 11,-7.5,2
+    python -m gypsum_tpu_torch rtk --base-file b.npy --rover-file r.npy \
+        --base-lla 51.5 -0.1 80 [--kinematic | --attitude 13.46] [--independent-clocks]
+    python -m gypsum_tpu_torch rtk --base-rinex b.obs --rover-rinex r.obs --nav run.nav \
+        --base-lla 51.5 -0.1 80
+
+The JAX CLI's ``bench`` sub-command and the replay flags for the web UI
+and the tracker figures are not ported yet (ROADMAP.md). Captures at other rates than the band's processing rate
 (2.046 Msps GPS, 4.092 Msps GLONASS) go through the decimating front end
 (``--sample-rate``, ``--glonass-rate``, ``--format`` or the sidecar), then
 through the notch when ``--notch`` asks for it. ``synth`` runs on the host
@@ -31,6 +41,7 @@ import sys
 
 from gypsum_tpu_torch.cli.acquire import cmd_acquire
 from gypsum_tpu_torch.cli.replay import cmd_replay
+from gypsum_tpu_torch.cli.rtk import cmd_rtk
 from gypsum_tpu_torch.cli.sources import _add_file_source_args
 from gypsum_tpu_torch.cli.synth import cmd_synth
 
@@ -73,10 +84,26 @@ def main(argv=None) -> int:
                    "decoded; the per-SV L2-L1 code-delay difference is the "
                    "MEASURED ionospheric correction (requires "
                    "--glonass-file)")
+    p.add_argument("--assist-nav", default=None, metavar="PATH",
+                   help="assisted start: load broadcast ephemerides from a "
+                        "RINEX 3 NAV file (e.g. a previous run's --rinex-nav "
+                        "export) — first fix right after the first handover "
+                        "word instead of after full subframe 1-3 decode")
+    p.add_argument("--assist-time", type=float, default=None, metavar="SOW",
+                   help="coarse GPS seconds-of-week of the stream start "
+                        "(±1 min is fine): with --assist-nav, snapshot fixes "
+                        "are published before any nav bit is decoded")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file: resumed from if it exists, written on exit "
                    "(either package's checkpoints load; the reference always "
                    "cold-starts)")
+    p.add_argument("--rinex-obs", default=None, metavar="PATH",
+                   help="export observables (C1C/L1C/D1C/S1C) as RINEX 3.04")
+    p.add_argument("--nmea-out", default=None, metavar="PATH",
+                   help="stream NMEA 0183 sentences (GGA/GSA/RMC/VTG/GSV/ZDA"
+                        " per fix) to PATH, line-buffered (obs/nmea.py)")
+    p.add_argument("--rinex-nav", default=None, metavar="PATH",
+                   help="export decoded broadcast ephemerides as RINEX 3.04 NAV")
     p.set_defaults(fn=cmd_replay)
 
     p = sub.add_parser("acquire", help="one-shot acquisition report over 10 ms")
@@ -190,6 +217,43 @@ def main(argv=None) -> int:
                    help="rover fractional oscillator frequency error "
                         "(e.g. 2e-8)")
     p.set_defaults(fn=cmd_synth)
+
+    p = sub.add_parser(
+        "rtk",
+        help="centimeter-level baseline between two simultaneous captures "
+             "(double-differenced carrier phase, integer ambiguity fixing)",
+    )
+    p.add_argument("--base-file", default=None, help="base receiver capture")
+    p.add_argument("--rover-file", default=None, help="rover receiver capture")
+    p.add_argument("--base-rinex", default=None,
+                   help="base RINEX 3 observation file (instead of a capture)")
+    p.add_argument("--rover-rinex", default=None,
+                   help="rover RINEX 3 observation file")
+    p.add_argument("--nav", default=None,
+                   help="RINEX 3 navigation file for the orbits (RINEX mode)")
+    p.add_argument("--base-lla", type=float, nargs=3, required=True,
+                   metavar=("LAT", "LON", "ALT"),
+                   help="known base position (deg, deg, m)")
+    p.add_argument("--format", default=None,
+                   help="named capture format for both files (see replay)")
+    p.add_argument("--sample-rate", type=float, default=None)
+    p.add_argument("--prns", nargs="*", default=None)
+    p.add_argument("--duration", type=float, default=None,
+                   help="process at most this many seconds of each capture")
+    p.add_argument("--epoch-every-ms", type=int, default=250)
+    p.add_argument("--ratio", type=float, default=2.0,
+                   help="integer-fix acceptance ratio (2nd-best/best cost)")
+    p.add_argument("--kinematic", action="store_true",
+                   help="moving rover: per-epoch baselines (shared ambiguities)")
+    p.add_argument("--attitude", type=float, default=None, metavar="SEP_M",
+                   help="dual-antenna attitude: known antenna separation in "
+                        "meters; prints per-epoch heading/pitch of the "
+                        "base->rover axis (solve/attitude.py)")
+    p.add_argument("--independent-clocks", action="store_true",
+                   help="receivers sample on their own oscillators: estimate "
+                        "the stream offset/drift from the observables and "
+                        "interpolate the rover onto the base epochs")
+    p.set_defaults(fn=cmd_rtk)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,12 +1,17 @@
 """``replay`` subcommand: the full receiver over a capture (reference
 parity: gypsum-cli.py's only mode), plus the GLONASS and multi-band replays
-and the checkpoints the reference lacks.
+and the assisted start, checkpoints and exports the reference lacks.
 
 Port of gypsum_tpu/cli/replay.py: GPS L1 C/A (``--file``), GLONASS only
 (``--glonass-file``), GPS + GLONASS (both: the fix solves the inter-system
 bias) and GLONASS L1OF + L2OF (``--glonass-file --glonass-l2-file``: the
 measured ionosphere); ``--checkpoint`` resumes from the file if it exists
 (written by either package) and writes it on exit, single- and dual-band.
+``--assist-nav``/``--assist-time`` load orbits from a RINEX NAV file and a
+coarse start time into the fix-owning band before the run;
+``--rinex-obs`` (one writer per tracked band, merged by epoch),
+``--rinex-nav`` and ``--nmea-out`` (on the fix-owning band) write their
+files after it.
 Its narration lines (acquisitions, drops, coasting, deep-integration ranging,
 subframes, SBAS MT9, GLONASS strings 1-4 and the ``FIX lat=... lon=...``
 lines) are the JAX CLI's.
@@ -141,6 +146,26 @@ def cmd_replay(args) -> int:
         _logger.info("GLONASS-only replay: %s", glonass_file)
     else:
         receiver = Receiver(source, config, eligible_prns=prns, device=args.device)
+    if args.assist_nav:
+        # Assisted start: broadcast ephemerides from a RINEX NAV file (ours
+        # or any IGS/receiver product). Orbits are known before any decode,
+        # so the first fix needs only the first handover word
+        # (solve/world.py:_assisted_bootstrap).
+        from gypsum_tpu_torch.obs.rinex import parse_nav, parse_nav_glonass
+
+        with open(args.assist_nav) as f:
+            nav_text = f.read()
+        n = receiver.world.assist_ephemerides(parse_nav(nav_text))
+        n_glo = receiver.world.assist_glonass_ephemerides(parse_nav_glonass(nav_text))
+        _logger.info("assist-nav %s: %d GPS + %d GLONASS ephemerides loaded",
+                     args.assist_nav, n, n_glo)
+    if args.assist_time is not None:
+        # Coarse time (network-time grade, ~minute accuracy is enough):
+        # with assist-nav this publishes coarse snapshot fixes before any
+        # nav bit is decoded (solve/world.py:_coarse_time_snapshot).
+        receiver.world.assist_time(args.assist_time)
+        _logger.info("assist-time: stream t=0 is SOW %.1f (coarse)", args.assist_time)
+
     if args.checkpoint and pathlib.Path(args.checkpoint).exists():
         from gypsum_tpu_torch.runtime.checkpoint import (
             fast_forward,
@@ -157,6 +182,28 @@ def cmd_replay(args) -> int:
             stream_s = load_checkpoint(receiver, args.checkpoint)
             fast_forward(source, stream_s)
         _logger.info("resumed from %s at stream t=%.1fs", args.checkpoint, stream_s)
+
+    rinex_writers = []
+    if args.rinex_obs:
+        from gypsum_tpu_torch.obs.rinex import RinexObsWriter
+
+        rinex_writers = [RinexObsWriter(receiver)]
+        receiver.add_block_listener(rinex_writers[0].on_block)
+        if dual is not None and dual.glonass is not receiver:
+            # Dual-band replay: the GLONASS band exports its own rows
+            # (R<slot>, incl. C2C when an L2 band rides along); bands merge
+            # by epoch at write time. The L2 band itself never gets a
+            # writer: its delay surfaces as the L1 rows' C2C.
+            w2 = RinexObsWriter(dual.glonass)
+            dual.glonass.add_block_listener(w2.on_block)
+            rinex_writers.append(w2)
+
+    nmea_writer = None
+    if args.nmea_out:
+        from gypsum_tpu_torch.obs.nmea import NmeaWriter
+
+        nmea_writer = NmeaWriter(path=args.nmea_out)
+        receiver.add_block_listener(nmea_writer.on_block)
 
     receiver.add_block_listener(narrate)
     if dual is not None and dual.glonass is not receiver:
@@ -177,6 +224,33 @@ def cmd_replay(args) -> int:
             _logger.info("checkpointed to %s at stream t=%.1fs",
                          args.checkpoint, source.seconds_consumed)
 
+    if any(w.epochs for w in rinex_writers):
+        from gypsum_tpu_torch.obs.rinex import write_obs_merged
+
+        approx = (receiver.world.position_fixes[-1].ecef
+                  if receiver.world.position_fixes else None)
+        n_epochs = write_obs_merged(
+            args.rinex_obs, [w for w in rinex_writers if w.epochs], approx_ecef=approx,
+        )
+        print(f"wrote RINEX observations: {args.rinex_obs} ({n_epochs} epochs)")
+    if args.rinex_nav:
+        from gypsum_tpu_torch.obs.rinex import render_nav
+
+        eph = {p: r.ephemeris for p, r in receiver.world._sats.items()
+               if r.ephemeris is not None}
+        glo = {p: r.glonass for p, r in receiver.world._sats.items()
+               if r.glonass is not None and r.glonass.slot >= 1}
+        if eph or glo:
+            with open(args.rinex_nav, "w") as f:
+                f.write(render_nav(
+                    eph, base_week=config.solver.gps_epoch_base_week_number,
+                    glonass=glo or None))
+            print(f"wrote RINEX navigation: {args.rinex_nav} "
+                  f"({len(eph)} GPS + {len(glo)} GLONASS ephemerides)")
+    if nmea_writer is not None:
+        nmea_writer.close()
+        print(f"wrote NMEA log: {args.nmea_out} "
+              f"({nmea_writer.n_fixes} fixes, {len(nmea_writer.lines)} sentences)")
     print(f"processed {source.seconds_consumed:.1f}s; "
           f"{receiver.subframe_count} subframes; "
           f"{len(receiver.world.position_fixes)} fixes")

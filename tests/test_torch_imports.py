@@ -128,8 +128,19 @@ def _null_jammers():
     return null_jammers(np.ones((4, 2046), np.complex64))
 
 
+def _cmd_rtk():
+    import argparse
+
+    from gypsum_tpu_torch.cli.rtk import cmd_rtk
+
+    return cmd_rtk(argparse.Namespace(
+        device="cuda", prns=None, attitude=None, kinematic=False, base_rinex=None,
+        rover_rinex=None, nav=None, base_file="base.npy", rover_file="rover.npy",
+        format=None, sample_rate=None, duration=None, base_lla=[51.5, -0.1, 80.0]))
+
+
 @pytest.mark.parametrize("build", [_build_acquisition, _build_bank, _build_receiver,
-                                   _build_notching_source, _null_jammers])
+                                   _build_notching_source, _null_jammers, _cmd_rtk])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(build):
     _needs_no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
