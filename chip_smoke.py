@@ -124,20 +124,44 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    ``--rinex-obs --rinex-nav --nmea-out`` files (tests/test_rinex.py's
    bars, one GGA per FIX line) and ``--assist-nav --assist-time`` on the
    pair's base (tests/test_assist.py's bars);
-11. a ``{"kernels": [...]}`` line with each kernel's launches, error and
+11. scale-out on torch.distributed (``run_mesh``), each launch's ranks
+   ``python3 chip_smoke.py --mesh-rank=...`` processes on cuda:0 meeting
+   through a FileStore under build/mesh/, every rank killed at the launch's
+   limit and any rank's failure failing the script: first two gloo ranks
+   try nine collectives on CUDA tensors (which gloo takes is logged), then
+   rank 1 raises before a collective and rank 0 must fail out of it within
+   the limit; then M1 (NCCL, world 1) and M2 (gloo, world 2, sat 2 x time
+   1), where each rank runs the five steps of
+   __graft_entry__.py:dryrun_multichip (the sharded sweep finds the planted
+   PRN 7 with the single-device sweep's indices; the halo sweep equals a
+   single-device linear correlation; the channel-sharded scan block and
+   the sharded fast tracker are held to the unsharded ones on this card,
+   K1 on a rank's channels to the bit to its slice of K1 on all 12) and
+   ``Receiver(device="cuda", mesh=...)`` replays the 23 s scene; each
+   replay is held here to the parity ladder against the default card
+   replay of step 4, with fixes < 2 m from truth, 23 K1 launches a rank,
+   and M2's two ranks' reports the same bytes. Each rank prints its steps'
+   times, ms per 1000 ms tracking block sharded and not, and the
+   all_gather's ms per block between events. Before the replays, the
+   farm (``check_farm``): ``make_farm_track_block_fn`` at bench.py:353's
+   8 streams x 8 channels, one block, against each stream alone;
+12. a ``{"kernels": [...]}`` line with each kernel's launches, error and
    both times beside its bound, and an entry per kernel at its GLONASS
-   inputs (launches from the GLONASS replays) and at the deep sweep's; K1's
+   inputs (launches from the GLONASS replays), at the deep sweep's and at
+   the mesh's (K1 M: a shard's S = 6 and 3, the farm's S = 64; launches
+   from M2's rank 0, the other ranks' and the farm's beside them); K1's
    entry carries its launches per ``rtk`` run (``rtk_launches``);
-12. last line: ``{"ok": true, "device": {...}}``.
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 It exits with an error at once when no CUDA device is present.
 
 ``python3 chip_smoke.py --kernels-only`` stops after step 3, and
 ``--kernels-only=K2,K4`` checks and times only the kernels it names (K1G,
-K2G, K4G and K5G name the GLONASS checks, K2D the deep sweep's): a
-short run for work on a kernel (no replay, so no launch counts and no result
-line). The checks call the wrappers with their oldest signatures (K4's
+K2G, K4G and K5G name the GLONASS checks, K2D the deep sweep's, K1M the
+mesh's): a short run for work on a kernel (no replay, so no launch counts
+and no result line). ``--mesh-only`` runs K1 M, the farm, the default
+replay of the GPS scene and step 11 (no result line). The checks call the wrappers with their oldest signatures (K4's
 optional ``n_split`` is probed), so a copy of this script and of
 ``csrc/empty.cu`` in a checkout of an earlier commit times that commit's
 kernels the same way, for a comparison of two commits within one run on one
@@ -152,7 +176,9 @@ import inspect
 import json
 import logging
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -408,6 +434,145 @@ def check_fixup(dev, sats, samples) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
+
+
+FARM_STREAMS, FARM_CHANNELS = 8, 8  # bench.py:353's farm geometry, 64 channels
+
+
+def farm_inputs(sats, samples):
+    """The farm's block: 8 streams, each the kernel checks' 1000 ms block
+    shifted by its own number of samples (whole ms plus n x 311), so each
+    stream holds the 8 satellites at other code phases; each stream's 8
+    channels pull in on them 3 Hz and half a sample off. Returns
+    (stream_of_channel [64], state, [B, 8, L] complex, replicas [64, W])."""
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.signal.prn import replica_table
+    from gypsum_tpu_torch.track.loop import fresh_state
+
+    shifts = [n * (37 * L + 311) for n in range(FARM_STREAMS)]
+    flat = samples.reshape(-1)
+    streams = torch.stack([flat.roll(s).reshape(samples.shape) for s in shifts], dim=1)
+    k = TrackingConfig().lag_window_half_width
+    reps = replica_table(L)
+    wide = np.concatenate([reps, reps, reps[:, : 2 * k]], axis=1).astype(np.float32)
+    state = fresh_state(FARM_STREAMS * FARM_CHANNELS)
+    for n, shift in enumerate(shifts):
+        for j, s in enumerate(sats[:FARM_CHANNELS]):
+            state.doppler[n * FARM_CHANNELS + j] = s.doppler_hz + 3.0
+            state.code_phase[n * FARM_CHANNELS + j] = (s.delay_samples + shift) % L + 0.5
+    prns = [s.prn for s in sats[:FARM_CHANNELS]] * FARM_STREAMS
+    replicas = torch.from_numpy(wide[[p - 1 for p in prns]]).to(samples.device)
+    stream_of_channel = np.repeat(np.arange(FARM_STREAMS), FARM_CHANNELS).astype(np.int32)
+    return stream_of_channel, state, streams, replicas
+
+
+def check_fixup_mesh(dev, sats, samples) -> dict:
+    """K1 at the shapes scale-out gives it (K1 M): each shard's slice of a
+    real 12-channel phase 1 at S = 6 (sat 2) and S = 3 (sat 4), and the
+    farm's phase 1 at S = 64. Every slice identical to the bit to the plain
+    version, and to the slice of K1 run on all 12 channels (K1 is one warp
+    a channel: a shard changes its grid and its carry, not its sums)."""
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.ops import fixup as fx
+    from gypsum_tpu_torch.track.loop import make_farm_track_block_fn
+
+    cfg = TrackingConfig()
+    bank, replicas = checks_bank(sats, dev, cfg)
+    _, init, corr_r, corr_i = bank._fn.phase1(bank.state, samples, replicas)
+    params = bank._fn.fixup_params
+    fin_all, outs_all = fx.fixup_cuda(init, corr_r, corr_i, params)
+    worst, shard6 = 0.0, None
+    for n_sat in (2, 4):
+        per = N_CH // n_sat
+        for c in range(n_sat):
+            cols = slice(c * per, (c + 1) * per)
+            args = (init[:, cols].contiguous(), corr_r[:, cols].contiguous(),
+                    corr_i[:, cols].contiguous())
+            worst = max(worst, hold_fixup(f"shard {c} of sat {n_sat}, S={per}", *args, params))
+            fin, outs = fx.fixup_cuda(*args, params)
+            if not (torch.equal(outs, outs_all[:, :, cols]) and torch.equal(fin, fin_all[:, cols])):
+                raise AssertionError(f"K1 on shard {c} of sat {n_sat} differs from its slice of "
+                                     "K1 on all 12 channels")
+            shard6 = shard6 or args
+    log(f"K1 M: every shard of sat 2 and 4 identical to the bit to its slice of K1 on all "
+        f"{N_CH} channels")
+    soc, state, streams, farm_replicas = farm_inputs(sats, samples)
+    farm = make_farm_track_block_fn(cfg, L, FS, len(soc), soc, device=dev)
+    _, f_init, f_r, f_i = farm.phase1(state, streams, farm_replicas)
+    worst = max(worst, hold_fixup(f"farm, S={len(soc)}", f_init, f_r, f_i, farm.fixup_params))
+    times = two_way({
+        "kernel": (lambda: fx.fixup_cuda(*shard6, params), 20, 2),
+        "plain": (lambda: fx.fixup_reference(*shard6, params), 1, 0),
+    })
+    bound_ms, bound_by = fixup_bound(shard6[1], params)
+    return {
+        "name": "K1 fixup at a mesh shard (S=6) and the farm (S=64)",
+        "route": "cuda",
+        "source": "gypsum_tpu_torch/csrc/fixup.cu",
+        "replaces": "gypsum_tpu/ops/pallas_fixup.py:58",
+        "max_abs_err": worst,
+        **timing_keys(times),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
+def check_farm(dev, sats, samples) -> int:
+    """``make_farm_track_block_fn`` at bench.py:353's geometry (8 streams x
+    8 channels, one 1000 ms block) against each stream tracked alone, with
+    tests/test_farm.py's bars; K1's launches around each. Returns the farm
+    block's K1 launches."""
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.ops.fixup import FIXUP_KERNEL
+    from gypsum_tpu_torch.track.loop import make_farm_track_block_fn, make_track_block_fn
+
+    soc, state, streams, replicas = farm_inputs(sats, samples)
+    cfg = TrackingConfig()
+    farm = make_farm_track_block_fn(cfg, L, FS, len(soc), soc, device=dev)
+    single = make_track_block_fn(cfg, L, FS, FARM_CHANNELS, device=dev)
+    farm(state, streams, replicas)  # warm: the first call pays cuBLAS's set-up
+    torch.cuda.synchronize()
+    FIXUP_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    s_farm, o_farm = farm(state, streams, replicas)
+    torch.cuda.synchronize()
+    farm_ms, farm_launches = 1e3 * (time.perf_counter() - t0), FIXUP_KERNEL.launches
+    FIXUP_KERNEL.launches = 0
+    alone_s, identical = 0.0, True
+    worst = {"doppler": 0.0, "code_phase": 0.0, "prompt_i": 0.0}
+    for n in range(FARM_STREAMS):
+        cols = slice(n * FARM_CHANNELS, (n + 1) * FARM_CHANNELS)
+        st = type(state)(*(a[cols] for a in state))
+        t0 = time.perf_counter()
+        s1, o1 = single(st, streams[:, n].contiguous(), replicas[cols])
+        torch.cuda.synchronize()
+        alone_s += time.perf_counter() - t0
+        for field, got, want, rtol, atol in (
+            ("doppler", s_farm.doppler[cols], s1.doppler, 1e-6, 0.0),
+            ("code_phase", s_farm.code_phase[cols], s1.code_phase, 1e-6, 0.0),
+            ("prompt_i", o_farm.prompt_i[:, cols], o1.prompt_i, 1e-5, 1e-2),
+        ):
+            err = float((got - want).abs().max())
+            worst[field] = max(worst[field], err)
+            if not torch.allclose(got, want, rtol=rtol, atol=atol):
+                raise AssertionError(f"farm stream {n}: {field} differs from the stream tracked "
+                                     f"alone by up to {err:.3g} (rtol {rtol}, atol {atol})")
+        if not torch.equal(o_farm.locked[:, cols], o1.locked):
+            raise AssertionError(f"farm stream {n}: locked differs from the stream tracked alone")
+        identical &= all(torch.equal(a[cols], b) for a, b in zip(s_farm, s1)) and all(
+            torch.equal(a[:, cols], b) for a, b in zip(o_farm, o1))
+    locked = int(o_farm.locked[-1].sum())
+    if farm_launches != 1 or FIXUP_KERNEL.launches != FARM_STREAMS:
+        raise AssertionError(f"farm launched K1 {farm_launches} times, the streams alone "
+                             f"{FIXUP_KERNEL.launches}")
+    log(f"farm: make_farm_track_block_fn, {FARM_STREAMS} streams x {FARM_CHANNELS} channels, "
+        f"one 1000 ms block: equals each stream tracked alone"
+        f"{', identical to the bit' if identical else ''} (max |diff| doppler "
+        f"{worst['doppler']:.3g} Hz, code phase {worst['code_phase']:.3g} samples, prompt_i "
+        f"{worst['prompt_i']:.3g}; locked equal; {locked}/{len(soc)} locked at block end); "
+        f"{farm_ms:.3f} ms for the farm's block, {1e3 * alone_s:.3f} ms for the 8 streams alone "
+        f"(host clock, synchronized); K1 launches: farm {farm_launches}, alone {FARM_STREAMS}")
+    return farm_launches
 
 
 # ---------------------------------------------------------------- phase 4: K2
@@ -2754,11 +2919,499 @@ def run_rtk(dev, scenes: "Scenes", k1: dict) -> None:
         f"{np.linalg.norm(lsq[-1][1] - base):.2f} m from truth (bar 10); {wall:.2f} s wall")
 
 
+# ------------------------------------------------------------- the mesh
+
+
+MESH_DIR = ROOT / "build" / "mesh"  # each launch's FileStore, rank logs and results
+MESH_LIMIT_S = 240.0  # a launch's time limit: every rank still running then is killed
+MESH_PG_TIMEOUT_S = 60.0  # the process group's: a rank waiting on a failed peer raises by then
+GLOO_CUDA_OPS = ("all_reduce", "all_gather", "broadcast", "all_gather_into_tensor",
+                 "reduce_scatter_tensor", "reduce", "gather", "scatter", "all_to_all_single")
+
+
+def mesh_launch(name: str, world: int, backend: str, scene: str = "",
+                pg_timeout_s: float = MESH_PG_TIMEOUT_S):
+    """Start ``world`` ranks (``python3 chip_smoke.py --mesh-rank=...``),
+    every one on cuda:0, meeting through a FileStore under build/ (no port
+    to collide on). Returns the launch for ``mesh_wait``."""
+    directory = MESH_DIR / name
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    # The ranks talk over the loopback only.
+    env.update(GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             f"--mesh-rank={name},{rank},{world},{backend},{pg_timeout_s},{scene}"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env,
+        )
+        for rank in range(world)
+    ]
+    return name, directory, procs, time.perf_counter()
+
+
+def mesh_wait(launch, expect_failure: bool = False) -> tuple[list, float]:
+    """Wait for a launch's ranks, each rank's output logged. Fails if the
+    time limit had to kill a rank, or if a rank failed (with
+    ``expect_failure``: if one did not). Returns (each rank's result, the
+    launch's wall seconds)."""
+    name, directory, procs, t0 = launch
+    outs, killed = [], False
+    try:
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=max(0.1, t0 + MESH_LIMIT_S - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                killed = True
+                p.kill()
+                out, _ = p.communicate()
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, out in enumerate(outs):
+        for line in out.strip().splitlines()[-30:]:
+            log(f"  [{name} rank {rank}] {line}")
+    rcs = [p.returncode for p in procs]
+    if killed:
+        raise AssertionError(f"mesh {name}: a rank ran into the {MESH_LIMIT_S:.0f} s limit and "
+                             f"was killed (return codes {rcs})")
+    if expect_failure:
+        if 0 in rcs:
+            raise AssertionError(f"mesh {name}: a rank should have failed, return codes {rcs}")
+        return [], wall
+    if any(rcs):
+        raise AssertionError(f"mesh {name}: rank(s) failed, return codes {rcs}")
+    return [pickle.loads((directory / f"rank{r}.pkl").read_bytes())
+            for r in range(len(procs))], wall
+
+
+def mesh_rank(spec: str) -> int:
+    """One rank of a launch (``mesh_launch``), on cuda:0."""
+    import torch.distributed as dist
+
+    from gypsum_tpu_torch.ops.fixup import FIXUP_KERNEL
+    from gypsum_tpu_torch.parallel.mesh import make_receiver_mesh
+
+    name, rank, world, backend, pg_timeout_s, scene = spec.split(",")
+    rank, world = int(rank), int(world)
+    directory = MESH_DIR / name
+    torch.cuda.set_device(0)  # one card: every rank on it, set before the mesh is built
+    dev = torch.device("cuda:0")
+    KERNELS["K1"] = FIXUP_KERNEL
+    dist.init_process_group(
+        backend, store=dist.FileStore(str(directory / "store"), world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=float(pg_timeout_s)))
+    try:
+        if name == "probe":
+            result = gloo_probe(rank, world, dev, directory)
+        else:
+            result = mesh_steps(make_receiver_mesh("cuda", world, 1), dev, scene)
+        (directory / f"rank{rank}.pkl").write_bytes(pickle.dumps(result))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gloo_probe(rank: int, world: int, dev, directory: Path) -> dict:
+    """Which collectives gloo takes on CUDA tensors (each result checked),
+    then a rank that fails: rank 1 raises before a last all_reduce, which
+    rank 0 enters and must leave with an error, not wait in forever. Each
+    op's outcome is appended to a file as it comes, so a crash still says
+    where."""
+    import torch.distributed as dist
+
+    def full(v, n=world):
+        return torch.full((n,), float(v), device=dev)
+
+    want_sum = float(sum(range(1, world + 1)))
+    ranks_plus_1 = [float(r + 1) for r in range(world)]
+
+    def run(op: str) -> bool:
+        """One collective on CUDA tensors; True when its result is right."""
+        mine = full(rank + 1)
+        if op == "all_reduce":
+            dist.all_reduce(mine)
+            return bool(mine.eq(want_sum).all())
+        if op == "all_gather":
+            parts = [full(0) for _ in range(world)]
+            dist.all_gather(parts, mine)
+            return [float(p[0]) for p in parts] == ranks_plus_1
+        if op == "broadcast":
+            dist.broadcast(mine, src=0)
+            return bool(mine.eq(1.0).all())
+        if op == "all_gather_into_tensor":
+            whole = full(0, world * world)
+            dist.all_gather_into_tensor(whole, mine)
+            return whole.reshape(world, world)[:, 0].tolist() == ranks_plus_1
+        if op == "reduce_scatter_tensor":
+            part = full(0, 1)
+            dist.reduce_scatter_tensor(part, mine)
+            return bool(part.eq(want_sum).all())
+        if op == "reduce":
+            dist.reduce(mine, dst=0)
+            return bool(mine.eq(want_sum if rank == 0 else rank + 1).all())
+        if op == "gather":
+            parts = [full(0) for _ in range(world)] if rank == 0 else None
+            dist.gather(mine, parts, dst=0)
+            return rank != 0 or [float(p[0]) for p in parts] == ranks_plus_1
+        if op == "scatter":
+            got = full(0)
+            dist.scatter(got, [full(r + 1) for r in range(world)] if rank == 0 else None, src=0)
+            return bool(got.eq(rank + 1).all())
+        if op == "all_to_all_single":
+            got = full(0)
+            dist.all_to_all_single(got, mine)
+            return got.tolist() == ranks_plus_1
+        raise ValueError(op)
+
+    taken = {}
+    with open(directory / f"probe{rank}.txt", "w") as f:
+        for op in GLOO_CUDA_OPS:
+            f.write(f"{op}: ...\n")
+            f.flush()
+            try:
+                ok = run(op)
+                torch.cuda.synchronize()
+                taken[op] = "taken" if ok else "taken, wrong result"
+            except Exception as exc:  # noqa: BLE001 — the probe records what gloo refuses
+                taken[op] = "refused: " + str(exc).strip().splitlines()[0][:160]
+            f.write(f"{op}: {taken[op]}\n")
+            f.flush()
+    (directory / f"rank{rank}.pkl").write_bytes(pickle.dumps(taken))
+    print(f"gloo on CUDA tensors: {taken}", flush=True)
+    if rank == 1:
+        raise RuntimeError("rank 1 fails before its collective")
+    t0 = time.perf_counter()
+    try:
+        dist.all_reduce(full(1))
+    finally:
+        print(f"rank 0 left the all_reduce after {time.perf_counter() - t0:.2f} s", flush=True)
+    return taken
+
+
+def mesh_steps(mesh, dev, scene: str) -> dict:
+    """The five steps of __graft_entry__.py:dryrun_multichip on this rank:
+    the sharded sweep, the halo sweep, the channel-sharded scan block, the
+    sharded fast tracker (K1) and ``Receiver(mesh=...)`` on the 23 s scene.
+    Each step is held here against its single-device run on the same card;
+    the replay's reports go back for the parity ladder."""
+    import torch.distributed as dist
+
+    from gypsum_tpu_torch.core.config import ReceiverConfig, TrackingConfig
+    from gypsum_tpu_torch.core.planes import to_complex, to_planes
+    from gypsum_tpu_torch.io.sources import ArraySampleSource
+    from gypsum_tpu_torch.ops import fixup as fx
+    from gypsum_tpu_torch.ops.correlate import (
+        noncoherent_acquisition_sweep,
+        peak_strength,
+        replica_fft_conj_table,
+    )
+    from gypsum_tpu_torch.parallel import sharded
+    from gypsum_tpu_torch.parallel.mesh import all_gather_cat, mesh_shape
+    from gypsum_tpu_torch.parallel.streaming import (
+        _chunk_linear_power,
+        linear_replica_fft_conj,
+        time_sharded_correlation_power,
+    )
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+    from gypsum_tpu_torch.signal.prn import replica_table, sampled_replica
+    from gypsum_tpu_torch.track.loop import TrackState, carry_rows, make_track_block_fn
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    n_sat = mesh_shape(mesh)["sat"]
+    out = {"mesh": mesh_shape(mesh)}
+    log(f"rank {rank} of {world}, {dist.get_backend()}, mesh {out['mesh']}, "
+        f"{torch.cuda.get_device_name(dev)}")
+
+    def hold(what, got, want, rtol, atol):
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            raise AssertionError(f"{what}: differs from the single-device run by up to {err:.3g} "
+                                 f"(rtol {rtol}, atol {atol})")
+        return err
+
+    # 1. The sharded sweep over PRN rows, the all-reduce argmax; PRN 7 planted.
+    t0 = time.perf_counter()
+    reps = replica_table(L)
+    n_rows = n_sat * -(-32 // n_sat)
+    pfc = torch.from_numpy(to_planes(replica_fft_conj_table(reps[np.arange(n_rows) % 32]))).to(dev)
+    rng = np.random.default_rng(0)
+    iq_ms = (0.5 * (rng.standard_normal((2, L)) + 1j * rng.standard_normal((2, L)))
+             + 0.4 * sampled_replica(7, L)[None, :]).astype(np.complex64)
+    samples_ms = torch.from_numpy(to_planes(iq_ms)).to(dev)
+    dops = torch.arange(-1000.0, 1001.0, 500.0, device=dev)
+    strength, d_idx, code_phase, row, val = sharded.sharded_acquisition_sweep(
+        mesh, samples_ms, dops, pfc, FS)
+    noncoh = noncoherent_acquisition_sweep(to_complex(samples_ms), dops, to_complex(pfc), FS)
+    flat = torch.argmax(noncoh.reshape(n_rows, -1), dim=-1)
+    ref_strength = peak_strength(noncoh[torch.arange(n_rows, device=dev), flat // L])
+    if int(row) % 32 != 6 or not torch.isfinite(strength).all():
+        raise AssertionError(f"sharded sweep: best row {int(row)}, PRN 7 was planted")
+    if not (torch.equal(d_idx.long(), flat // L) and torch.equal(code_phase.long(), flat % L)):
+        raise AssertionError("sharded sweep: Doppler or code-phase indices differ")
+    err = hold("sharded sweep strength", strength, ref_strength, 1e-5, 0.0)
+    log(f"M step 1, sharded sweep ({n_rows} rows, {n_rows // n_sat} a rank): best row "
+        f"{int(row)} (PRN 7), strength {float(val):.2f}; indices equal to the single-device "
+        f"sweep's, strengths within {err:.3g}; {1e3 * (time.perf_counter() - t0):.1f} ms")
+
+    # 2. The halo sweep: a burst across the rank 0 -> 1 edge where there is
+    # one (4 chunks at world 1 and 2).
+    t0 = time.perf_counter()
+    n_chunks = 2 * max(world, 2)
+    rep = reps[4].astype(np.float32)
+    iq = (0.3 * (rng.standard_normal(n_chunks * L) + 1j * rng.standard_normal(n_chunks * L))
+          ).astype(np.complex64)
+    pos = 2 * L - 700
+    iq[pos:pos + L] += 0.8 * rep
+    iq_t = torch.from_numpy(iq).to(dev)
+    power = time_sharded_correlation_power(mesh, torch.view_as_real(iq_t).contiguous(), rep)
+    pfc2 = torch.from_numpy(linear_replica_fft_conj(rep)).to(dev)
+    ref_power = _chunk_linear_power(torch.cat([iq_t, iq_t[:L]]), pfc2, L)
+    err = hold("halo sweep", power, ref_power, 1e-4, 1e-3)
+    ci, lag = divmod(int(torch.argmax(power)), L)
+    if ci * L + lag != pos:
+        raise AssertionError(f"halo sweep: burst found at {ci * L + lag}, planted at {pos}")
+    log(f"M step 2, halo sweep ({n_chunks} chunks, {n_chunks // world} a rank): burst at "
+        f"sample {pos} found; "
+        f"within {err:.3g} of the single-device linear correlation; "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+
+    sats, block = synthetic_block(dev)
+
+    def inputs(cfg):
+        bank, replicas = checks_bank(sats, dev, cfg, off_air=False)
+        return TrackState(*(a.copy() for a in bank.state)), replicas
+
+    def hold_tracker(what, outs, carry, ref_outs, ref_carry):
+        """Every output and carry row within 1e-3 of its scale, locked,
+        lost and the step count exact: the bar of tests/test_torch_tracker.py
+        for phase-1 sums taken in another order (cuBLAS may take another
+        GEMM for a shard's [2046, 2 S NLE] than for the whole's), which the
+        loop integrates over the block's 1000 ms."""
+        errs = []
+        for name, got, want in (("outputs", outs, ref_outs), ("carry", carry, ref_carry)):
+            for r in range(got.shape[-2]):
+                a, b = got[..., r, :], want[..., r, :]
+                errs.append(hold(f"{what} {name} row {r}", a, b, 0.0,
+                                 1e-3 * max(1.0, float(b.abs().max()))))
+        if not (torch.equal(outs[:, fx.O_LOCKED], ref_outs[:, fx.O_LOCKED])
+                and torch.equal(outs[:, fx.O_LOST], ref_outs[:, fx.O_LOST])
+                and torch.equal(carry[fx.STEP], ref_carry[fx.STEP])):
+            raise AssertionError(f"{what}: locked, lost or the step count differs")
+        return max(errs)
+
+    # 3. The channel-sharded scan block: this rank's slice through the per-ms
+    # scan tracker (200 ms), gathered over 'sat'.
+    t0 = time.perf_counter()
+    cfg = TrackingConfig(block_size_ms=200, use_matmul_tracker=False,
+                         use_pallas_block_tracker=False)
+    state, replicas = inputs(cfg)
+    whole = make_track_block_fn(cfg, L, FS, N_CH, device=dev)
+    ref_state, ref_outs = whole.packed(state, block[:200], replicas)
+    local = make_track_block_fn(cfg, L, FS, N_CH // n_sat, device=dev)
+    st, outs = local.packed(*sharded.shard_tracking_inputs(mesh, state, block[:200], replicas))
+    group = mesh.get_group("sat")
+    err = hold_tracker("scan block", all_gather_cat(outs, group, 2),
+                       all_gather_cat(torch.stack(carry_rows(st)), group, 1),
+                       ref_outs, torch.stack(carry_rows(ref_state)))
+    log(f"M step 3, channel-sharded scan block (200 ms, {N_CH // n_sat} of {N_CH} channels a "
+        f"rank): within {err:.3g} of the unsharded block; {time.perf_counter() - t0:.2f} s")
+
+    # 4. The sharded fast tracker: phase 1 and K1 on each rank's channels.
+    cfg = TrackingConfig()
+    state, replicas = inputs(cfg)
+    whole = make_track_block_fn(cfg, L, FS, N_CH, device=dev)
+    fast = sharded.make_sharded_track_block_fn(mesh, cfg, L, FS, N_CH, device=dev)
+    ref_state, ref_outs = whole.packed(state, block, replicas)
+    got_state, got_outs = fast.packed(state, block, replicas)
+    got_carry, ref_carry = torch.stack(carry_rows(got_state)), torch.stack(carry_rows(ref_state))
+    identical = torch.equal(got_outs, ref_outs) and torch.equal(got_carry, ref_carry)
+    diff = max(float((got_outs - ref_outs).abs().max()), float((got_carry - ref_carry).abs().max()))
+    err = hold_tracker("fast tracker", got_outs, got_carry, ref_outs, ref_carry)
+    # K1 on this rank's slice of the unsharded phase 1 is K1's slice.
+    _, init, corr_r, corr_i = whole.phase1(state, block, replicas)
+    rows = sharded._sat_block(mesh, N_CH, "channels")
+    fin_s, outs_s = fx.fixup_cuda(init[:, rows].contiguous(), corr_r[:, rows].contiguous(),
+                                  corr_i[:, rows].contiguous(), whole.fixup_params)
+    fin_w, outs_w = fx.fixup_cuda(init, corr_r, corr_i, whole.fixup_params)
+    if not (torch.equal(outs_s, outs_w[:, :, rows]) and torch.equal(fin_s, fin_w[:, rows])):
+        raise AssertionError("fast tracker: K1 on this rank's channels differs from its slice")
+
+    def per_call_ms(fn, n=10):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n, 1e3 * (time.perf_counter() - t0) / n
+
+    rows_block = torch.zeros(1000 * fx.N_OUT + 9, N_CH // n_sat, device=dev)
+    whole_ms = per_call_ms(lambda: whole.packed(state, block, replicas))
+    fast_ms = per_call_ms(lambda: fast.packed(state, block, replicas))
+    gather_ms = per_call_ms(lambda: all_gather_cat(rows_block, group, 1))
+    out["block_ms"] = {"unsharded": whole_ms, "sharded": fast_ms, "all_gather": gather_ms}
+    log(f"M step 4, sharded fast tracker (1000 ms, {N_CH // n_sat} of {N_CH} channels a "
+        f"rank): {'identical to the bit to' if identical else f'within {err:.3g} of'} the "
+        f"unsharded tracker (max |diff| {diff:.3g}); K1 on this rank's channels identical to "
+        f"the bit to its slice of K1 on all {N_CH}. One 1000 ms block (events; host clock): "
+        f"unsharded {whole_ms[0]:.3f}; {whole_ms[1]:.3f} ms, sharded {fast_ms[0]:.3f}; "
+        f"{fast_ms[1]:.3f} ms, of which the all_gather of its [{rows_block.shape[0]}, "
+        f"{rows_block.shape[1]}] float32 rows {gather_ms[0]:.3f}; {gather_ms[1]:.3f} ms")
+    del block
+
+    # 5. Receiver(mesh=...) replays the 23 s scene; the all_gather of each
+    # block between events, K1's launches counted around the run.
+    iq = np.load(scene)
+    gathers = []
+    plain_gather = sharded.all_gather_cat
+
+    def timed_gather(t, grp, dim):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = plain_gather(t, grp, dim)
+        end.record()
+        gathers.append((start, end, 1e3 * (time.perf_counter() - t0)))
+        return res
+
+    sharded.all_gather_cat = timed_gather
+    recv = Receiver(ArraySampleSource(iq, FS), ReceiverConfig(), device=dev, mesh=mesh)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sharded.all_gather_cat = plain_gather
+    out["k1_launches"] = launches()["K1"]
+    dev_ms = [s.elapsed_time(e) for s, e, _ in gathers]
+    host_ms = [h for _, _, h in gathers]
+    out["local_channels"] = recv.bank._fn.local_channels
+    out["blocks"] = round(recv.source.seconds_consumed)  # 1000 ms blocks dispatched
+    out["reports"] = recv.block_reports
+    log(f"M step 5, Receiver(device='cuda', mesh=...): {out['blocks']} blocks, "
+        f"{len(recv.world.position_fixes)} fixes, {wall:.2f} s wall for "
+        f"{recv.source.seconds_consumed:.0f} s of signal; K1 launches {out['k1_launches']} "
+        f"at S={out['local_channels']}; the all_gather {len(gathers)} times, mean "
+        f"{np.mean(dev_ms):.3f} ms between events, {np.mean(host_ms):.3f} ms host")
+    return out
+
+
+def mesh_reference(recv) -> dict:
+    """What the parity ladder reads of a replay (tests/test_multichip_receiver.py)."""
+    return {
+        "acq": [(h.prn, h.code_phase_samples) for h in recv.block_reports[0].newly_acquired],
+        "signs": signs_by_prn(recv),
+        "subframes": [(prn, ev.decoded.handover.tow_count, ev.decoded.handover.subframe_id.value)
+                      for r in recv.block_reports for prn, ev in r.subframes],
+        "fixes": [r.fix for r in recv.block_reports if r.fix is not None],
+    }
+
+
+def hold_ladder(label: str, reports, ref: dict, rx: np.ndarray) -> str:
+    """The parity ladder against the single-device card replay: equal
+    acquisitions, > 99.9 % sign agreement, equal subframes, equal fix epochs
+    and sets, positions within 1 m; every fix < 2 m from truth."""
+    from types import SimpleNamespace
+
+    got = mesh_reference(SimpleNamespace(block_reports=reports))
+    if got["acq"] != ref["acq"]:
+        raise AssertionError(f"{label}: acquisitions {got['acq']} != {ref['acq']}")
+    agree = {}
+    for prn in SCENE_PRNS:
+        a, b = ref["signs"][prn], got["signs"].get(prn)
+        if b is None or a.shape != b.shape:
+            raise AssertionError(f"{label}: PRN {prn}'s pseudosymbol stream differs in length")
+        agree[prn] = float(np.mean(a == b))
+        if agree[prn] <= 0.999:
+            raise AssertionError(f"{label}: PRN {prn} sign agreement {agree[prn]:.4%}")
+    if got["subframes"] != ref["subframes"] or len(got["subframes"]) < 3 * len(SCENE_PRNS):
+        raise AssertionError(f"{label}: subframe streams differ")
+    fa, fb = ref["fixes"], got["fixes"]
+    if not fb or len(fa) != len(fb):
+        raise AssertionError(f"{label}: {len(fb)} fixes, the single-device replay {len(fa)}")
+    apart, errs = [], []
+    for sa, sb in zip(fa, fb):
+        if sa.receiver_timestamp != sb.receiver_timestamp or \
+                sorted(sa.satellites_used) != sorted(sb.satellites_used):
+            raise AssertionError(f"{label}: fix epochs or satellite sets differ")
+        apart.append(float(np.linalg.norm(sa.ecef - sb.ecef)))
+        errs.append(float(np.linalg.norm(sb.ecef - rx)))
+    if max(apart) >= 1.0 or max(errs) >= 2.0:
+        raise AssertionError(f"{label}: fixes {apart} m from the single-device run's, "
+                             f"{errs} m from truth")
+    return (f"acquisitions equal, sign agreement {min(agree.values()):.4%} or more, "
+            f"{len(got['subframes'])} subframes equal, {len(fb)} "
+            f"fixes at the same epochs on the same satellites, at most {max(apart):.3f} m from "
+            f"the single-device run's, {min(errs):.2f}-{max(errs):.2f} m from truth")
+
+
+def run_mesh(scenes: "Scenes", ref: dict, rx: np.ndarray, k1m: dict) -> None:
+    """Scale-out on one card: gloo's collectives on CUDA tensors and a
+    failing rank (two ranks), M1 (NCCL, world 1) and M2 (gloo, world 2, both
+    ranks on cuda:0, sat 2 x time 1), each rank's steps held there, each
+    replay held to the parity ladder here; both M2 ranks' reports must be
+    the same bytes."""
+    scene = str(scenes.path("gps"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    probe = mesh_launch("probe", 2, "gloo", pg_timeout_s=20.0)
+    _, probe_wall = mesh_wait(probe, expect_failure=True)
+    taken = {}
+    for rank in range(2):
+        text = (MESH_DIR / "probe" / f"probe{rank}.txt").read_text()
+        taken[rank] = [line for line in text.splitlines() if not line.endswith("...")]
+    log(f"mesh probe (gloo, 2 ranks on cuda:0): rank 0: {'; '.join(taken[0])}")
+    if taken[0] != taken[1]:
+        log(f"mesh probe: rank 1 saw otherwise: {'; '.join(taken[1])}")
+    for op in ("all_reduce", "all_gather", "broadcast"):
+        if f"{op}: taken" not in taken[0]:
+            raise AssertionError(f"gloo did not take {op} on CUDA tensors")
+    log(f"mesh probe: rank 1 raised before its collective, rank 0 failed out of it; the launch "
+        f"failed in {probe_wall:.1f} s, inside its {MESH_LIMIT_S:.0f} s limit")
+
+    results = {}
+    for label, world, backend in (("M1", 1, "nccl"), ("M2", 2, "gloo")):
+        ranks, wall = mesh_wait(mesh_launch(label, world, backend, scene))
+        for rank, res in enumerate(ranks):
+            summary = hold_ladder(f"{label} rank {rank}", res["reports"], ref, rx)
+            if res["k1_launches"] != res["blocks"]:
+                raise AssertionError(f"{label} rank {rank}: {res['k1_launches']} K1 launches for "
+                                     f"{res['blocks']} blocks")
+            log(f"{label} ({backend}, world {world}) rank {rank}: Receiver(mesh=...) against "
+                f"Receiver(device='cuda'): {summary}; K1 {res['k1_launches']} launches at "
+                f"S={res['local_channels']}")
+        if world > 1 and len({pickle.dumps(r["reports"]) for r in ranks}) != 1:
+            raise AssertionError(f"{label}: the ranks' block reports differ")
+        results[label] = ranks
+        log(f"mesh {label}: {world} rank(s), {backend}; {wall:.1f} s wall for the launch "
+            f"(process start, the five steps, the replay)")
+    k1m["launches"] = results["M2"][0]["k1_launches"]
+    k1m["mesh_launches"] = {label: [r["k1_launches"] for r in ranks]
+                            for label, ranks in results.items()}
+    k1m["gloo_cuda_collectives"] = taken[0]
+    k1m["mesh_block_ms"] = {label: ranks[0]["block_ms"] for label, ranks in results.items()}
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s wall")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
               file=sys.stderr)
         return 1
+    ranks = [a for a in sys.argv[1:] if a.startswith("--mesh-rank=")]
+    if ranks:
+        return mesh_rank(ranks[0].partition("=")[2])
     dev = torch.device("cuda:0")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2771,10 +3424,11 @@ def main() -> int:
     flags = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
     if flags:
         return smoke(dev, flags[0].partition("=")[2], None)
+    mesh_only = "--mesh-only" in sys.argv[1:]
     tmp = tempfile.TemporaryDirectory()
-    scenes = Scenes(SCENE_NAMES, tmp.name)
+    scenes = Scenes(["gps"] if mesh_only else SCENE_NAMES, tmp.name)
     try:
-        return smoke(dev, None, scenes)
+        return smoke(dev, "mesh" if mesh_only else None, scenes)
     finally:
         scenes.close()
         tmp.cleanup()
@@ -2790,7 +3444,8 @@ SCENE_NAMES = ["gps", "array", "gps_8x", "fade", "glonass", "glonass_8x", "dual_
 
 def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     """Everything after the device check: with ``only`` (names, or "" for
-    all) the kernel checks alone, else the whole run on ``scenes``."""
+    all) the kernel checks alone, with ``only="mesh"`` K1 M, the farm and
+    the mesh phase on the GPS scene, else the whole run on ``scenes``."""
     from gypsum_tpu_torch.core.config import ReceiverConfig
     from gypsum_tpu_torch.core.device import resolve_device
     from gypsum_tpu_torch.io.sources import ArraySampleSource, DecimatingSampleSource
@@ -2842,7 +3497,18 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
         "K4G": lambda: check_wipeoff_lag_glonass(dev, glonass()),
         "K5G": lambda: check_fir_decimate_glonass(dev),
         "K2D": lambda: check_peak_reduce_deep(dev, *deep_inputs()),
+        "K1M": lambda: check_fixup_mesh(dev, sats, samples),
     }
+    if only == "mesh":
+        # A short run for work on scale-out (no result line).
+        k1m = checks["K1M"]()
+        k1m["farm_launches"] = check_farm(dev, sats, samples)
+        del samples
+        rx = lla_to_ecef(*TRUTH_LLA)
+        recv = run_receiver(scenes.get("gps"), rx, dev)[0]
+        run_mesh(scenes, mesh_reference(recv), rx, k1m)
+        log(json.dumps({"kernels": [k1m]}))
+        return 0
     if only is not None:
         # A short run for work on a kernel: the checks of the kernels named
         # (all of them without names); no replay, so no launch counts and
@@ -2852,6 +3518,7 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
         return 0
     entries = {name: check() for name, check in checks.items()}
     check_scan_variants(dev, sats, samples)
+    entries["K1M"]["farm_launches"] = check_farm(dev, sats, samples)
     del samples, glonass_blocks
     torch.cuda.empty_cache()
     k1, k2, k3, k4, k5 = (entries[k] for k in ("K1", "K2", "K3", "K4", "K5"))
@@ -2864,6 +3531,7 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     reset_launches()
     recv, acq_a, errs_a, wall_a = run_receiver(iq, rx, dev, peak_kernel=False)
     n = launches()
+    mesh_ref = mesh_reference(recv)  # what the mesh replays are held to
     k1["launches"] = n["K1"]
     if n["K1"] == 0:
         raise AssertionError("the main path never launched K1")
@@ -2992,6 +3660,9 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     # The rtk entry point (two receivers through K1 each, the host solve)
     # and the replay's exports and assisted start.
     run_rtk(dev, scenes, k1)
+
+    # Scale-out on torch.distributed: the mesh's ranks on this card.
+    run_mesh(scenes, mesh_ref, rx, entries["K1M"])
 
     log(f"total: {time.perf_counter() - T_START:.1f} s since the script started")
     log(SMI[0])  # again at the end, where a kept tail of the output still shows it

@@ -271,34 +271,39 @@ class CoastMixin:
         d1, f1 = p1
         fs = self.sample_rate
         drift = (((d1 - d0) + 0.5e-3) % 1e-3 - 0.5e-3) * fs
-        if self._coast_measurer is None:
-            from gypsum_tpu_torch.track.deepmeas import DeepCoastMeasurer
-
-            self._coast_measurer = DeepCoastMeasurer(
-                fs, self.samples_per_prn, self.bank.prns, self.bank.config,
-                device=self.device,
-            )
-        # The retained block crosses to the device once, for every channel
-        # that coasts in it (the pageable upload is the largest device item
-        # of a replay).
-        key = int(round(block_start * 1e3))
-        if self._coast_raw_dev is None or self._coast_raw_dev[0] != key:
-            self._coast_raw_dev = (key, torch.from_numpy(raw).to(self.device))
-        raw_dev = self._coast_raw_dev[1]
-        # FDMA channels sit at their sub-band offset in baseband: the static
-        # offset is wiped separately in float64 inside the measurer (float32
-        # chunk phases at MHz offsets would cost ~45° of per-ms jitter on
-        # exactly the weak-signal path that needs coherence); only the
-        # kHz-scale Doppler grid reaches the float32 wipeoff.
         off = pipe.carrier_offset_hz
-        res = self._coast_measurer.measure(
-            raw_dev,
-            obs.prn,
-            (d0 * fs) % self.samples_per_prn,
-            drift,
-            0.5 * (f0 + f1),
-            static_offset_hz=off,
-        )
+
+        def measure():
+            if self._coast_measurer is None:
+                from gypsum_tpu_torch.track.deepmeas import DeepCoastMeasurer
+
+                self._coast_measurer = DeepCoastMeasurer(
+                    fs, self.samples_per_prn, self.bank.prns, self.bank.config,
+                    device=self.device,
+                )
+            # The retained block crosses to the device once, for every
+            # channel that coasts in it (the pageable upload is the largest
+            # device item of a replay).
+            key = int(round(block_start * 1e3))
+            if self._coast_raw_dev is None or self._coast_raw_dev[0] != key:
+                self._coast_raw_dev = (key, torch.from_numpy(raw).to(self.device))
+            # FDMA channels sit at their sub-band offset in baseband: the
+            # static offset is wiped separately in float64 inside the
+            # measurer (float32 chunk phases at MHz offsets would cost ~45°
+            # of per-ms jitter on exactly the weak-signal path that needs
+            # coherence); only the kHz-scale Doppler grid reaches the
+            # float32 wipeoff.
+            return self._coast_measurer.measure(
+                self._coast_raw_dev[1],
+                obs.prn,
+                (d0 * fs) % self.samples_per_prn,
+                drift,
+                0.5 * (f0 + f1),
+                static_offset_hz=off,
+            )
+
+        # In mesh mode rank 0 measures and every rank gets its result.
+        res = self._agreed(measure)
         if res is None or not res.detected:
             return None
         from gypsum_tpu_torch.track.deepmeas import xcorr_suspect

@@ -76,6 +76,7 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         world: WorldModel | None = None,
         attempt_fixes: bool = True,
         device: str | torch.device = "cuda",
+        mesh=None,
     ) -> None:
         """``band``: "gps" (L1 C/A + SBAS family, the default), "glonass"
         (the L1OF FDMA band at 1602 MHz: its own source, acquisition
@@ -91,10 +92,21 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         without racing the owner's fix attempts.
 
         ``device``: where acquisition and tracking run ("cuda" by default;
-        raises when no card is present, pass "cpu" to run on the CPU)."""
+        raises when no card is present, pass "cpu" to run on the CPU).
+
+        ``mesh``: a ('sat', 'time') DeviceMesh (parallel/mesh.py); this
+        process is then one rank of an SPMD run, ``device`` its own. The
+        tracking bank runs in mesh mode (each rank tracks its slice of the
+        channels, the block's state and outputs are gathered whole on every
+        rank), and the device results that steer the host (acquisition
+        hits, the coast tier's deep measurements) are computed on rank 0
+        and broadcast, so every rank takes the same decisions on the same
+        bytes and reaches the same collectives. Every rank must be built
+        alike and read the same samples."""
         if band not in ("gps", "glonass", "glonass_l2"):
             raise ValueError(f"unknown band {band!r} (gps | glonass | glonass_l2)")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.config = config or ReceiverConfig()
         self.band = band
         self.source = source
@@ -157,6 +169,7 @@ class Receiver(CoastMixin, BandProcessorsMixin):
             input_offset=self._input_offset,
             prns=self.prn_family,
             device=self.device,
+            mesh=mesh,
         )
         self.world = world if world is not None else WorldModel(self.config.solver)
         # Spoofing monitors (solve/spoofing.py): detection-only watchdogs.
@@ -238,6 +251,16 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         for fn in self._block_listeners:
             fn(self, report)
         return report
+
+    def _agreed(self, compute):
+        """``compute()``, a device result that steers the host: in mesh mode
+        run on rank 0 only and broadcast, so every rank holds the same
+        bytes (parallel/mesh.py:broadcast_from_rank0)."""
+        if self.mesh is None:
+            return compute()
+        from gypsum_tpu_torch.parallel.mesh import broadcast_from_rank0
+
+        return broadcast_from_rank0(compute, self.device)
 
     # ------------------------------------------------------------- the loop
 
@@ -473,7 +496,8 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         candidates = self._scan_candidates(block_start)
         if not candidates:
             return
-        hits = self.acquisition.detect(block[:n_ms], eligible_prns=candidates)
+        hits = self._agreed(
+            lambda: self.acquisition.detect(block[:n_ms], eligible_prns=candidates))
         for hit in hits:
             if not self.bank.free_slots:
                 break

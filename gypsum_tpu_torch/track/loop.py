@@ -211,6 +211,29 @@ def make_track_block_fn(
     )
 
 
+def make_farm_track_block_fn(
+    config: TrackingConfig,
+    samples_per_prn: int,
+    sample_rate: float,
+    n_channels: int,
+    stream_of_channel: np.ndarray,  # [S] int — which stream each channel reads
+    device: str | torch.device = "cuda",
+):
+    """Multi-stream ("replay farm") block tracker: each channel consumes its
+    own IQ stream — N independent captures or antennas tracked in one
+    dispatch.
+
+    Returns ``f(state, samples_block [B, N, L, 2] float32 planes (or
+    [B, N, L] complex), replicas_wide [S, >= 2L + 2K] float32) -> (state',
+    TrackBlockOutputs [B, S])``; ``stream_of_channel[s]`` selects the stream
+    channel s correlates against.
+    """
+    return make_track_block_fn(
+        config, samples_per_prn, sample_rate, n_channels,
+        stream_of_channel=stream_of_channel, device=device,
+    )
+
+
 def _make_block_kernel_wrapper(cfg, length, fs, input_offset, device):
     """Adapt the whole-block kernel (ops/track_block.py) to the
     TrackState/TrackBlockOutputs contract."""
@@ -292,7 +315,15 @@ class TrackerBank:
         input_offset: float = 0.0,
         prns: tuple[int, ...] = ALL_PRN_IDS,
         device: str | torch.device = "cuda",
+        mesh=None,
     ) -> None:
+        """``mesh``: a ('sat', 'time') DeviceMesh (parallel/mesh.py). The
+        bank's block program becomes the channel-sharded fast tracker
+        (parallel/sharded.py:make_sharded_track_block_fn): each rank runs
+        the single-device tracker on its n_channels / n_sat slice on
+        ``device`` and the block's state and outputs are gathered whole on
+        every rank; the host orchestration (assignment, observation
+        building, drop/rescue/coast) is unchanged."""
         self.config = config or TrackingConfig()
         self.device = resolve_device(device)
         self.sample_rate = float(sample_rate)
@@ -300,10 +331,19 @@ class TrackerBank:
         self.n_channels = n_channels
         self.prns = tuple(prns)
         self._prn_row = {prn: i for i, prn in enumerate(self.prns)}
-        self._fn = make_track_block_fn(
-            self.config, self.samples_per_prn, self.sample_rate, n_channels,
-            input_offset=input_offset, device=self.device,
-        )
+        self.mesh = mesh
+        if mesh is not None:
+            from gypsum_tpu_torch.parallel.sharded import make_sharded_track_block_fn
+
+            self._fn = make_sharded_track_block_fn(
+                mesh, self.config, self.samples_per_prn, self.sample_rate,
+                n_channels, input_offset=input_offset, device=self.device,
+            )
+        else:
+            self._fn = make_track_block_fn(
+                self.config, self.samples_per_prn, self.sample_rate, n_channels,
+                input_offset=input_offset, device=self.device,
+            )
         k = self.config.lag_window_half_width
         reps = replica_table(self.samples_per_prn, self.prns)  # [N, L]
         self._replicas_wide = np.concatenate(

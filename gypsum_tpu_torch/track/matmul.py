@@ -63,12 +63,6 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a, b)
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if a.dtype == torch.bfloat16:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a, b)
-
-
 def make_matmul_track_block_fn(
     config: TrackingConfig,
     samples_per_prn: int,
@@ -130,11 +124,15 @@ def make_matmul_track_block_fn(
 
     l_over_fs = torch.from_numpy((np.arange(length) / fs).astype(np.float32)).to(device)
 
-    farm_idx = None
+    farm_groups = None
     if stream_of_channel is not None:
-        farm_idx = torch.as_tensor(np.asarray(stream_of_channel, dtype=np.int64), device=device)
-        if farm_idx.shape != (n_channels,):
+        soc = np.asarray(stream_of_channel, dtype=np.int64)
+        if soc.shape != (n_channels,):
             raise ValueError(f"stream_of_channel must have shape ({n_channels},)")
+        # (stream, its channels in order): each stream's channels are
+        # correlated as one product, as the single-stream tracker does.
+        farm_groups = [(int(n), torch.as_tensor(np.flatnonzero(soc == n), device=device))
+                       for n in np.unique(soc)]
 
     def build_rows(replicas_wide: torch.Tensor, state: TrackState):
         """Block-static lag window [S, NLE, L] in ascending lag order,
@@ -157,21 +155,28 @@ def make_matmul_track_block_fn(
         w_i = to_mm(-rows_lj * s0[:, :, None])
         cr = to_mm(chunks.real.contiguous())
         ci = to_mm(chunks.imag.contiguous())
-        s_count = rows.shape[0]
-        if farm_idx is None:
-            # corr = c . W with complex c and W: re = cr.wr - ci.wi,
-            # im = cr.wi + ci.wr; all four products as ONE matmul
-            # [2B, L] x [L, 2 S NLE].
-            b_count = chunks.shape[0]
+
+        def product(cr, ci, w_r, w_i):
+            """corr = c . W with complex c and W: re = cr.wr - ci.wi,
+            im = cr.wi + ci.wr; all four products as ONE matmul
+            [2B, L] x [L, 2 S NLE]."""
+            b_count, s_count = cr.shape[0], w_r.shape[0]
             w = torch.stack([w_r, w_i]).permute(2, 0, 1, 3).reshape(length, -1)
             prod = _mm_f32(torch.cat([cr, ci]), w).reshape(2, b_count, 2, s_count, n_lags_eff)
-            corr_r = prod[0, :, 0] - prod[1, :, 1]
-            corr_i = prod[0, :, 1] + prod[1, :, 0]
+            return prod[0, :, 0] - prod[1, :, 1], prod[0, :, 1] + prod[1, :, 0]
+
+        if farm_groups is None:
+            corr_r, corr_i = product(cr, ci, w_r, w_i)
         else:
-            cr_s = cr[:, farm_idx].transpose(0, 1).contiguous()  # [S, B, L]
-            ci_s = ci[:, farm_idx].transpose(0, 1).contiguous()
-            corr_r = (_bmm_f32(cr_s, w_r) - _bmm_f32(ci_s, w_i)).transpose(0, 1)
-            corr_i = (_bmm_f32(cr_s, w_i) + _bmm_f32(ci_s, w_r)).transpose(0, 1)
+            # One product a stream, its channels laid out as the
+            # single-stream tracker lays them out: a stream's channels get
+            # the sums they would get tracked alone (the same product
+            # shapes), whatever the other streams hold.
+            shape = (chunks.shape[0], rows.shape[0], n_lags_eff)
+            corr_r = torch.empty(shape, dtype=torch.float32, device=chunks.device)
+            corr_i = torch.empty_like(corr_r)
+            for n, idx in farm_groups:
+                corr_r[:, idx], corr_i[:, idx] = product(cr[:, n], ci[:, n], w_r[idx], w_i[idx])
         return corr_r.contiguous(), corr_i.contiguous()
 
     def phase1(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):

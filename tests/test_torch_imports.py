@@ -1,4 +1,5 @@
-"""The port (gypsum_tpu_torch) and chip_smoke.py stand alone: no JAX, nothing
+"""The port (gypsum_tpu_torch), chip_smoke.py and the port's rank worker
+(tests/_torch_dist_worker.py, a source scan) stand alone: no JAX, nothing
 of the JAX package, and no quiet fall back to the CPU when CUDA is asked for.
 
 The import check runs in a subprocess: tests/conftest.py imports JAX into
@@ -65,7 +66,8 @@ _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|gypsum_tpu)(?!\w)"
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "_torch_dist_worker.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

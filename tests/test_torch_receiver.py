@@ -5,16 +5,24 @@ tests/test_multichip_receiver.py (equal acquisitions, > 99.9 % pseudosymbol
 sign agreement, equal subframe streams, equal fix epochs and satellite sets,
 positions within 1 m), and the port's CLI replay to a fix.
 
-Both receivers run phase 1 in float32 (matmul_tracker_bf16=False): the
+Each level of the ladder holds two port receivers: the single-device one
+("single") and ``Receiver(mesh=...)`` on two gloo ranks, sat 2 x time 1
+("mesh": tests/_torch_dist_worker.py, started first so that it runs while
+this process replays; the scene reaches it as a .npy). Both ranks' reports
+must be identical.
+
+Every receiver runs phase 1 in float32 (matmul_tracker_bf16=False): the
 comparison is of the algorithm, not of bf16 rounding.
 """
 
 import dataclasses
 import os
+import pickle
 import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -27,6 +35,7 @@ from gypsum_tpu.solve.geodesy import lla_to_ecef
 from gypsum_tpu_torch.core.config import ReceiverConfig
 from gypsum_tpu_torch.io.sources import ArraySampleSource
 from gypsum_tpu_torch.runtime.receiver import Receiver
+from tests._torch_dist_worker import launch
 from tests.ephemeris_fixtures import TEST_EPHEMERIDES
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -51,7 +60,26 @@ def scene():
 
 
 @pytest.fixture(scope="module")
-def both_receivers(scene):
+def mesh_ranks(scene, tmp_path_factory):
+    """The two-rank mesh replay, started: it runs while this process
+    replays the scene through both single-device receivers."""
+    directory = tmp_path_factory.mktemp("mesh_receiver")
+    np.save(directory / "scene.npy", scene[1])
+    ranks = launch("receiver", 2, directory, threads=2)
+    yield ranks
+    ranks.close()
+
+
+@pytest.fixture(scope="module")
+def mesh_receiver(mesh_ranks):
+    """Both ranks' results (rank 0's first)."""
+    rcs, outs, timed_out = mesh_ranks.wait(timeout=300)
+    assert not timed_out and rcs == [0, 0], "\n".join(o[-3000:] for o in outs)
+    return mesh_ranks.results()
+
+
+@pytest.fixture(scope="module")
+def both_receivers(scene, mesh_ranks):
     rx, iq = scene
     jcfg = JaxReceiverConfig()
     jcfg = jcfg.replace(tracking=dataclasses.replace(jcfg.tracking, matmul_tracker_bf16=False))
@@ -64,6 +92,18 @@ def both_receivers(scene):
     return rx, ref, port
 
 
+@pytest.fixture(params=["single", "mesh"])
+def receivers(request, both_receivers):
+    """(truth, JAX reference, port receiver): the single-device receiver or
+    rank 0 of the mesh replay."""
+    rx, ref, port = both_receivers
+    if request.param == "mesh":
+        res = request.getfixturevalue("mesh_receiver")[0]
+        port = SimpleNamespace(block_reports=res["reports"],
+                               world=SimpleNamespace(receiver_clock_slide=res["clock_slide"]))
+    return rx, ref, port
+
+
 def _signs_by_prn(recv):
     out: dict[int, list[np.ndarray]] = {}
     for report in recv.block_reports:
@@ -72,16 +112,16 @@ def _signs_by_prn(recv):
     return {p: np.concatenate(v) for p, v in out.items()}
 
 
-def test_acquisition_parity(both_receivers):
-    _, ref, port = both_receivers
+def test_acquisition_parity(receivers):
+    _, ref, port = receivers
     a = [(h.prn, h.code_phase_samples) for h in ref.block_reports[0].newly_acquired]
     b = [(h.prn, h.code_phase_samples) for h in port.block_reports[0].newly_acquired]
     assert b == a
     assert {p for p, _ in b} >= set(PRNS)
 
 
-def test_pseudosymbol_stream_parity(both_receivers):
-    _, ref, port = both_receivers
+def test_pseudosymbol_stream_parity(receivers):
+    _, ref, port = receivers
     a, b = _signs_by_prn(ref), _signs_by_prn(port)
     assert set(a) == set(b)
     for prn in PRNS:
@@ -90,8 +130,8 @@ def test_pseudosymbol_stream_parity(both_receivers):
         assert agree > 0.999, f"PRN {prn}: sign agreement {agree:.4%}"
 
 
-def test_subframe_decode_parity(both_receivers):
-    _, ref, port = both_receivers
+def test_subframe_decode_parity(receivers):
+    _, ref, port = receivers
 
     def stream(recv):
         return [
@@ -104,8 +144,8 @@ def test_subframe_decode_parity(both_receivers):
     assert b == a and len(b) >= 3 * len(PRNS)
 
 
-def test_fix_parity(both_receivers):
-    rx, ref, port = both_receivers
+def test_fix_parity(receivers):
+    rx, ref, port = receivers
     fa = [r.fix for r in ref.block_reports if r.fix is not None]
     fb = [r.fix for r in port.block_reports if r.fix is not None]
     assert fa and fb, "both replays must fix"
@@ -116,6 +156,18 @@ def test_fix_parity(both_receivers):
         assert np.linalg.norm(sa.ecef - sb.ecef) < 1.0
     assert np.linalg.norm(fb[-1].ecef - rx) < 100.0
     assert port.world.receiver_clock_slide == pytest.approx(ref.world.receiver_clock_slide, abs=1e-6)
+
+
+def test_mesh_ranks_report_alike(mesh_receiver):
+    """Every host decision of an SPMD replay rests on identical bytes
+    (gathered outputs, acquisitions broadcast from rank 0): both ranks'
+    reports are the same, each rank tracked 6 of the 12 channels."""
+    first, second = mesh_receiver
+    assert first["mesh"] == second["mesh"] == {"sat": 2, "time": 1}
+    assert first["local_channels"] == second["local_channels"] == 6
+    assert len(first["reports"]) == 23
+    assert pickle.dumps(first["reports"]) == pickle.dumps(second["reports"])
+    assert first["clock_slide"] == second["clock_slide"]
 
 
 def test_receiver_is_not_pipelined_on_cpu(both_receivers):
