@@ -145,13 +145,32 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    all_gather's ms per block between events. Before the replays, the
    farm (``check_farm``): ``make_farm_track_block_fn`` at bench.py:353's
    8 streams x 8 channels, one block, against each stream alone;
-12. a ``{"kernels": [...]}`` line with each kernel's launches, error and
+12. the host surfaces (``run_host_surfaces``): the 23 s scene written as a
+   raw interleaved float32 capture (2.046 Msps) and the 8.184 Msps scene as
+   an interleaved int8 one (scaled so that its largest component is 127;
+   the log states the scale), each with its sidecar; the port's
+   ``FileSampleSource`` (the native C++ reader, io/native.py, with its
+   prefetch thread) held to the bit to ``convert_numpy`` on both (three
+   blocks, a block at an odd offset, the prefetch's and the spot's reads);
+   the host ms per 1000 ms ``read_block`` of both readers in turns (at
+   ``DecimatingSampleSource.read_block`` for the int8 file); each file
+   replayed by ``replay --file ... --until-fix`` in this process to a fix
+   within 100 m, the int8 one with one K5 launch per decimated block; the
+   port's dashboard server on 127.0.0.1:0 and ``Receiver(device="cuda")``
+   over the 23 s scene with a ``DashboardClient`` and a
+   ``TrackerVisualizer`` (tests/test_obs.py's bars, K1 launches equal to
+   the blocks, PNGs that decode or, without matplotlib, none and one
+   warning); ``replay --web-ui --render-figures`` with no server
+   listening, in a scratch working directory, to its fix; and ``replay
+   --duration 3 --profile-dir``, its trace parsed, its CUDA kernel events
+   and K1's counted;
+13. a ``{"kernels": [...]}`` line with each kernel's launches, error and
    both times beside its bound, and an entry per kernel at its GLONASS
    inputs (launches from the GLONASS replays), at the deep sweep's and at
    the mesh's (K1 M: a shard's S = 6 and 3, the farm's S = 64; launches
    from M2's rank 0, the other ranks' and the farm's beside them); K1's
    entry carries its launches per ``rtk`` run (``rtk_launches``);
-13. last line: ``{"ok": true, "device": {...}}``.
+14. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 It exits with an error at once when no CUDA device is present.
@@ -1578,10 +1597,10 @@ def run_glonass_receiver(iq: np.ndarray, dev, peak_kernel: bool = False, **track
     return recv, acq, errs, wall
 
 
-def run_cli_here(*argv: str, command: str = "replay") -> tuple[str, float]:
-    """``python -m gypsum_tpu_torch <command> ...`` run in this process (the
-    CLI's own ``main``), so that the kernels' launch counts see it.
-    Returns (its standard output, wall s)."""
+def run_cli_here(*argv: str, command: str = "replay", options: tuple = ()) -> tuple[str, float]:
+    """``python -m gypsum_tpu_torch <options> <command> ...`` run in this
+    process (the CLI's own ``main``), so that the kernels' launch counts see
+    it. Returns (its standard output, wall s)."""
     import contextlib
     import io
     import logging
@@ -1592,7 +1611,7 @@ def run_cli_here(*argv: str, command: str = "replay") -> tuple[str, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli_main([command, *argv])
+        rc = cli_main([*options, command, *argv])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     logging.getLogger().setLevel(logging.WARNING)  # the CLI turned on INFO for its run
@@ -2919,6 +2938,278 @@ def run_rtk(dev, scenes: "Scenes", k1: dict) -> None:
         f"{np.linalg.norm(lsq[-1][1] - base):.2f} m from truth (bar 10); {wall:.2f} s wall")
 
 
+# ------------------------- raw captures, the dashboard, the profile flag
+
+
+def write_raw_captures(scenes: "Scenes") -> dict:
+    """The 23 s GPS scene as an interleaved float32 capture at 2.046 Msps and
+    the same scene at 8.184 Msps as an interleaved int8 capture (hackrf's
+    format: each component times a scale that puts the scene's largest at
+    127, rounded), each with its ``.json`` sidecar, written in 1 s chunks
+    beside the scenes. Returns name -> (path, RecordingInfo, scale)."""
+    from gypsum_tpu_torch.io.sources import RecordingInfo
+
+    out = {}
+    for name, scene, rate, dtype in (("raw_f32", "gps", FS, np.float32),
+                                     ("raw_i8", "gps_8x", FS_FAST, np.int8)):
+        iq = scenes.get(scene)
+        parts = iq.view(np.float32)  # interleaved re, im: the capture's own layout
+        scale = 1.0 if dtype == np.float32 else 127.0 / float(np.abs(parts).max())
+        path = scenes.directory / f"{name}.{np.dtype(dtype).name}"
+        chunk = 2 * int(rate)
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            for lo in range(0, len(parts), chunk):
+                words = parts[lo : lo + chunk]
+                if dtype != np.float32:
+                    words = np.round(words * np.float32(scale))
+                words.astype(dtype).tofile(f)
+        meta = {"sample_rate": rate, "dtype": np.dtype(dtype).name}
+        Path(f"{path}.json").write_text(json.dumps(meta))
+        out[name] = (path, RecordingInfo.from_sidecar(path), scale)
+        log(f"raw capture {path.name}: the {scene} scene, {len(iq) / rate:.0f} s at "
+            f"{rate / 1e6:.3f} Msps, interleaved {np.dtype(dtype).name}"
+            f"{f' x {scale:.4f} (the largest component at 127)' if scale != 1.0 else ''}, "
+            f"{path.stat().st_size / 1e6:.0f} MB, sidecar {meta}; "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        del iq, parts
+    return out
+
+
+def hold_file_source(name: str, info) -> None:
+    """The port's FileSampleSource (the native reader, its prefetch) against
+    the plain numpy conversion on the same file, to the bit: the first three
+    1000 ms blocks (the second and third served by the prefetch), a block at
+    an odd sample offset after the cursor moved (read on the spot) and the
+    block after it (the prefetch again)."""
+    from gypsum_tpu_torch.io.sources import FileSampleSource, convert_numpy
+
+    src = FileSampleSource(info)
+    words = np.memmap(info.path, dtype=info.component_dtype, mode="r")
+    spp = src.attributes.samples_per_prn
+    odd = 3000 * spp + 1001
+    plan = [(0, 0), (1000 * spp, 1), (2000 * spp, 2), (odd, 2), (odd + 1000 * spp, 3)]
+    for start, hits in plan:
+        if start == odd:
+            src._cursor = odd  # as a resume moves it, with a prefetch queued
+        _, block = src.read_block(1000)
+        want = convert_numpy(words, start, 1000 * spp, info.component_offset)
+        if block.tobytes() != want.tobytes():
+            raise AssertionError(f"{name}: the block at sample {start} differs from numpy's")
+        if src._native.prefetched_reads != hits:
+            raise AssertionError(f"{name}: {src._native.prefetched_reads} prefetched reads "
+                                 f"after the block at {start}, expected {hits}")
+    log(f"{name}: FileSampleSource blocks at samples {[s for s, _ in plan]} (1000 ms each) "
+        f"equal to the bit to convert_numpy; {src._native.prefetched_reads} of 5 served by "
+        f"the prefetch")
+
+
+def read_block_ms(make_source, n_blocks: int = 12) -> list[float]:
+    """Host ms of each of ``n_blocks`` sequential 1000 ms ``read_block`` calls
+    of a fresh source from ``make_source()``."""
+    source, ms = make_source(), []
+    for _ in range(n_blocks):
+        t0 = time.perf_counter()
+        source.read_block(1000)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def time_reads(name: str, make_native, make_numpy) -> None:
+    """Median host ms per read_block, the native reader against numpy's
+    conversion, in turns (numpy, native, native, numpy) on this host."""
+    turns = {"numpy": [], "native": []}
+    for which in ("numpy", "native", "native", "numpy"):
+        turns[which].append(read_block_ms(make_native if which == "native" else make_numpy))
+    med = {k: [float(np.median(t)) for t in v] for k, v in turns.items()}
+    log(f"{name}: read_block host ms per 1000 ms block, median of 12 a turn: native "
+        f"{' / '.join(f'{m:.3f}' for m in med['native'])}, numpy "
+        f"{' / '.join(f'{m:.3f}' for m in med['numpy'])} (the native turns' first read is "
+        f"not prefetched)")
+
+
+def run_raw_captures(dev, scenes: "Scenes", rx: np.ndarray) -> None:
+    """Raw captures through the native reader: both files held to numpy's
+    conversion, their read times, and each replayed to a fix through the CLI
+    in this process (the int8 capture through K5, one launch a block)."""
+    from gypsum_tpu_torch.io.sources import (
+        DecimatingSampleSource,
+        FileSampleSource,
+        convert_numpy,
+    )
+
+    class NumpyFileSource(FileSampleSource):
+        """The plain version's source: numpy's conversion, no prefetch."""
+
+        def _convert(self, start: int, count: int) -> np.ndarray:
+            return convert_numpy(self._words, start, count, self.info.component_offset)
+
+        def read_block(self, n_ms: int):
+            ts, block = self.peek_block(n_ms)
+            self._cursor += n_ms * self._spp
+            return ts, block
+
+    captures = write_raw_captures(scenes)
+    for name, (path, info, _) in captures.items():
+        hold_file_source(name, info)
+    info = captures["raw_f32"][1]
+    time_reads("raw_f32 FileSampleSource", lambda: FileSampleSource(info),
+               lambda: NumpyFileSource(info))
+    info8 = captures["raw_i8"][1]
+    time_reads("raw_i8 DecimatingSampleSource(FileSampleSource), K5 on the card",
+               lambda: DecimatingSampleSource(FileSampleSource(info8), FS, device=dev),
+               lambda: DecimatingSampleSource(NumpyFileSource(info8), FS, device=dev))
+
+    for name, (path, _, scale) in captures.items():
+        reset_launches()
+        out, wall = run_cli_here("--file", str(path), "--until-fix")
+        n = launches()
+        blocks = processed_blocks(out)
+        fixes = cli_fixes(out)
+        if not fixes or n["K1"] == 0:
+            raise AssertionError(f"replay --file {path.name}: {len(fixes)} fixes, launches {n}:\n"
+                                 f"{out[-2000:]}")
+        err = float(np.linalg.norm(fixes[-1][0] - rx))
+        if err >= 100.0:
+            raise AssertionError(f"replay --file {path.name}: FIX {err:.1f} m from truth")
+        if name == "raw_i8" and n["K5"] != blocks:
+            raise AssertionError(f"replay --file {path.name}: {blocks} decimated blocks, "
+                                 f"launches {n}")
+        log(f"e2e CLI replay --file {path.name} --until-fix: FIX {err:.2f} m from truth after "
+            f"{blocks} blocks; {wall:.2f} s wall; launches {n}")
+
+
+def run_dashboard(dev, scenes: "Scenes", rx: np.ndarray) -> None:
+    """The port's dashboard server on 127.0.0.1:0 in a thread and
+    ``Receiver(device="cuda")`` over the 23 s scene with a
+    ``DashboardClient`` and a ``TrackerVisualizer`` attached, held to
+    tests/test_obs.py's bars; then ``replay --web-ui --render-figures`` with
+    no server listening, in a scratch working directory, to its fix."""
+    import base64
+    import contextlib
+    import threading
+    import urllib.request
+
+    from gypsum_tpu_torch.core.config import ObservabilityConfig, ReceiverConfig
+    from gypsum_tpu_torch.io.sources import ArraySampleSource
+    from gypsum_tpu_torch.obs import dashboard_server
+    from gypsum_tpu_torch.obs.dashboard_client import DashboardClient
+    from gypsum_tpu_torch.obs.visualizer import TrackerVisualizer
+    from gypsum_tpu_torch.runtime.receiver import Receiver
+
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        have_matplotlib = False
+    else:
+        have_matplotlib = True
+    server = dashboard_server.ThreadingHTTPServer(("127.0.0.1", 0), dashboard_server._Handler)
+    url = f"http://127.0.0.1:{server.server_address[1]}/"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        # A render every 5 s of signal: with matplotlib a render of the four
+        # channels takes seconds of host.
+        vis = TrackerVisualizer(render_period_s=5.0)
+        client = DashboardClient(ObservabilityConfig(dashboard_url=url, dashboard_scan_period_s=0.0),
+                                 visualizer=vis)
+        recv = Receiver(ArraySampleSource(scenes.get("gps"), FS), ReceiverConfig(), device=dev)
+        recv.add_block_listener(client.on_block)
+        reset_launches()
+        with LogLines("gypsum_tpu_torch.obs.visualizer") as warned:
+            wall = timed_run(recv)
+        n = launches()
+        blocks = round(recv.source.seconds_consumed)
+
+        def get(route: str) -> str:
+            with urllib.request.urlopen(url + route, timeout=10) as resp:
+                return resp.read().decode()
+
+        state = json.loads(get("state.json"))
+        pages = {route: get(route) for route in
+                 ("", "satellite_infos", "receiver_stats", "tracker_visualizers")}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    errs = [float(np.linalg.norm(f.ecef - rx)) for f in recv.world.position_fixes]
+    if not client._connected or state["metrics"]["blocks"] < 1 or \
+            not set(SCENE_PRNS) <= set(state["tracked_prns"]):
+        raise AssertionError(f"dashboard state: connected {client._connected}, blocks "
+                             f"{state['metrics']['blocks']}, tracked {state['tracked_prns']}")
+    needles = {"": ("gypsum_tpu", "initPanel"), "satellite_infos": ("PRN 25",),
+               "receiver_stats": ("Signal time",), "tracker_visualizers": ("<body>",)}
+    for route, want in needles.items():
+        if not all(w in pages[route] for w in want):
+            raise AssertionError(f"route /{route} lacks {want}: {pages[route][:500]}")
+    if not errs or max(errs) >= 100.0 or n["K1"] != blocks:
+        raise AssertionError(f"dashboard replay: fixes {errs} m, {blocks} blocks, launches {n}")
+    pngs = {prn: base64.b64decode(b) for prn, b in vis.rendered_png_base64.items()}
+    if have_matplotlib:
+        import io
+
+        import matplotlib.image
+
+        shapes = [matplotlib.image.imread(io.BytesIO(p), format="png").shape for p in pngs.values()]
+        if not set(SCENE_PRNS) <= set(pngs):
+            raise AssertionError(f"figures rendered for {sorted(pngs)}")
+        figures = f"{len(pngs)} PNGs, each decodes ({shapes[0]})"
+    else:
+        said = [line for line in warned.lines if "matplotlib" in line]
+        if pngs or len(said) != 1:
+            raise AssertionError(f"no matplotlib: {len(pngs)} PNGs rendered, warnings {said}")
+        figures = f"no matplotlib here: no PNG rendered, one warning: {said[0]!r}"
+    log(f"dashboard: Receiver(device='cuda') with DashboardClient + TrackerVisualizer, server "
+        f"on {url}: state.json blocks {state['metrics']['blocks']}, tracked "
+        f"{state['tracked_prns']}; the four routes serve their needles; {len(errs)} fixes, "
+        f"last {errs[-1]:.2f} m; K1 launches {n['K1']} for {blocks} blocks; {figures}; "
+        f"{wall:.2f} s wall")
+
+    with tempfile.TemporaryDirectory() as cwd, contextlib.chdir(cwd):
+        out, wall = run_cli_here("--file", str(scenes.path("gps")), "--until-fix",
+                                 "--web-ui", "--render-figures")
+        written = sorted(p.name for p in Path(cwd).rglob("*"))
+    fixes = cli_fixes(out)
+    if not fixes or np.linalg.norm(fixes[-1][0] - rx) >= 100.0 or written:
+        raise AssertionError(f"replay --web-ui --render-figures: {len(fixes)} fixes, wrote "
+                             f"{written}:\n{out[-2000:]}")
+    log(f"e2e CLI replay --until-fix --web-ui --render-figures, no server listening: FIX "
+        f"{np.linalg.norm(fixes[-1][0] - rx):.2f} m from truth; nothing written to its "
+        f"working directory; {wall:.2f} s wall")
+
+
+def run_profile_dir(scenes: "Scenes") -> None:
+    """``replay --duration 3 --profile-dir``: the trace parses as JSON and
+    holds the card's kernels (K1's among them)."""
+    with tempfile.TemporaryDirectory() as prof:
+        _, wall = run_cli_here("--file", str(scenes.path("gps")), "--duration", "3",
+                               options=("--profile-dir", prof))
+        traces = list(Path(prof).glob("replay.*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"--profile-dir wrote {traces}")
+        size = traces[0].stat().st_size
+        events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "fixup_kernel" in e.get("name", "")]
+    if not kernels:
+        raise AssertionError(f"--profile-dir trace: {len(events)} events, no CUDA kernel")
+    log(f"e2e CLI --profile-dir replay --duration 3: trace {size / 1e6:.1f} MB, {len(events)} "
+        f"events, {len(kernels)} CUDA kernel events, {len(k1)} of them K1's; {wall:.2f} s wall")
+
+
+def run_host_surfaces(dev, scenes: "Scenes") -> None:
+    """The raw-capture reader, the dashboard and figures, and the profile
+    flag on the card, with this step's wall."""
+    from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
+
+    t0 = time.perf_counter()
+    rx = lla_to_ecef(*TRUTH_LLA)
+    run_raw_captures(dev, scenes, rx)
+    run_dashboard(dev, scenes, rx)
+    run_profile_dir(scenes)
+    log(f"raw captures, dashboard, profile: {time.perf_counter() - t0:.1f} s wall")
+
+
 # ------------------------------------------------------------- the mesh
 
 
@@ -3663,6 +3954,10 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
 
     # Scale-out on torch.distributed: the mesh's ranks on this card.
     run_mesh(scenes, mesh_ref, rx, entries["K1M"])
+
+    # Raw captures through the native reader, the dashboard and the tracker
+    # figures, and the CLI's --profile-dir.
+    run_host_surfaces(dev, scenes)
 
     log(f"total: {time.perf_counter() - T_START:.1f} s since the script started")
     log(SMI[0])  # again at the end, where a kept tail of the output still shows it

@@ -25,12 +25,18 @@ Usage:
     python -m gypsum_tpu_torch rtk --base-rinex b.obs --rover-rinex r.obs --nav run.nav \
         --base-lla 51.5 -0.1 80
 
-The JAX CLI's ``bench`` sub-command and the replay flags for the web UI
-and the tracker figures are not ported yet (ROADMAP.md). Captures at other rates than the band's processing rate
-(2.046 Msps GPS, 4.092 Msps GLONASS) go through the decimating front end
-(``--sample-rate``, ``--glonass-rate``, ``--format`` or the sidecar), then
-through the notch when ``--notch`` asks for it. ``synth`` runs on the host
-(numpy) and needs no card.
+    python -m gypsum_tpu_torch.obs.dashboard_server --port 8080 &
+    python -m gypsum_tpu_torch replay --file capture.npy --web-ui --render-figures
+    python -m gypsum_tpu_torch --profile-dir prof replay --file capture.npy --duration 3
+
+The JAX CLI's ``bench`` sub-command is not ported: it runs the JAX
+package's benchmark (``bench.py``), and the port's benchmark is work of its
+own (ROADMAP.md). Every other sub-command and flag is (``--device`` stands
+for the JAX CLI's ``--platform``). Captures at other rates than the band's
+processing rate (2.046 Msps GPS, 4.092 Msps GLONASS) go through the
+decimating front end (``--sample-rate``, ``--glonass-rate``, ``--format`` or
+the sidecar), then through the notch when ``--notch`` asks for it.
+``synth`` runs on the host (numpy) and needs no card.
 """
 
 from __future__ import annotations
@@ -55,6 +61,12 @@ def main(argv=None) -> int:
         default="cuda",
         help="where acquisition and tracking run (default cuda; fails when "
         "no card is present)",
+    )
+    parser.add_argument(
+        "--profile-dir",
+        default=None,
+        help="run the command under torch.profiler and write a Chrome trace "
+        "into this directory (open with Perfetto or chrome://tracing)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -104,6 +116,13 @@ def main(argv=None) -> int:
                         " per fix) to PATH, line-buffered (obs/nmea.py)")
     p.add_argument("--rinex-nav", default=None, metavar="PATH",
                    help="export decoded broadcast ephemerides as RINEX 3.04 NAV")
+    p.add_argument("--web-ui", action="store_true", help="push state to the web dashboard")
+    p.add_argument("--render-figures", action="store_true",
+                   help="render the 20-panel per-satellite tracker figures (pushed to the "
+                   "web dashboard with --web-ui, else saved to tracker_figures/)")
+    p.add_argument("--show-tracker", action="store_true",
+                   help="live matplotlib tracker window per satellite "
+                   "(reference: --present_matplotlib_sat_tracker)")
     p.set_defaults(fn=cmd_replay)
 
     p = sub.add_parser("acquire", help="one-shot acquisition report over 10 ms")
@@ -256,7 +275,31 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_rtk)
 
     args = parser.parse_args(argv)
+    if args.profile_dir:
+        return run_profiled(args)
     return args.fn(args)
+
+
+def run_profiled(args) -> int:
+    """Run the command under ``torch.profiler`` (host activity, and the
+    card's with ``--device cuda``) and write its Chrome trace as
+    ``<command>.<pid>.pt.trace.json`` into ``args.profile_dir``."""
+    import os
+    import pathlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if args.device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = pathlib.Path(args.profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        rc = args.fn(args)
+    path = out / f"{args.command}.{os.getpid()}.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    logging.getLogger("gypsum_tpu_torch").info("profile trace written to %s", path)
+    return rc
 
 
 if __name__ == "__main__":

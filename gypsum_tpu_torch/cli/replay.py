@@ -11,7 +11,11 @@ measured ionosphere); ``--checkpoint`` resumes from the file if it exists
 coarse start time into the fix-owning band before the run;
 ``--rinex-obs`` (one writer per tracked band, merged by epoch),
 ``--rinex-nav`` and ``--nmea-out`` (on the fix-owning band) write their
-files after it.
+files after it. ``--web-ui`` pushes the receiver's state to the dashboard
+server (obs/dashboard_server.py); ``--render-figures`` renders the
+20-panel tracker figures (pushed with ``--web-ui``, else saved to
+``tracker_figures/`` in the working directory) and ``--show-tracker`` shows
+them in live matplotlib windows.
 Its narration lines (acquisitions, drops, coasting, deep-integration ranging,
 subframes, SBAS MT9, GLONASS strings 1-4 and the ``FIX lat=... lon=...``
 lines) are the JAX CLI's.
@@ -182,6 +186,30 @@ def cmd_replay(args) -> int:
             stream_s = load_checkpoint(receiver, args.checkpoint)
             fast_forward(source, stream_s)
         _logger.info("resumed from %s at stream t=%.1fs", args.checkpoint, stream_s)
+
+    visualizer = None
+    if args.render_figures or args.show_tracker:
+        from gypsum_tpu_torch.obs.visualizer import TrackerVisualizer
+
+        visualizer = TrackerVisualizer(live_window=args.show_tracker)
+    if args.web_ui:
+        from gypsum_tpu_torch.obs.dashboard_client import DashboardClient
+
+        receiver.add_block_listener(DashboardClient(config.obs, visualizer=visualizer).on_block)
+    elif visualizer is not None:
+        # No dashboard: drive the renderer directly and save PNGs locally.
+        import base64
+
+        figure_dir = pathlib.Path("tracker_figures")
+        figure_dir.mkdir(exist_ok=True)
+
+        def save_figures(recv, report):
+            visualizer.on_block(recv, report)
+            for prn, png in visualizer.rendered_png_base64.items():
+                (figure_dir / f"prn{prn:02d}.png").write_bytes(base64.b64decode(png))
+
+        receiver.add_block_listener(save_figures)
+        _logger.info("writing tracker figures to %s/", figure_dir)
 
     rinex_writers = []
     if args.rinex_obs:

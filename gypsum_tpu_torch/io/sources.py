@@ -8,9 +8,10 @@ re-designed for block-based device dispatch:
 - recordings are described by a JSON sidecar (``<capture>.json``) instead of a
   hard-coded in-code registry (the reference requires editing
   radio_input.py:101-111 to add an input);
-- the file reader memory-maps the capture and deinterleaves I/Q lazily in
-  numpy (the JAX package's native C++ reader, io/native, is not ported: it
-  is a host-side speed-up of this same conversion);
+- the file reader deinterleaves I/Q per block through the native C++
+  reader (io/native.py, native/iqreader.cpp), which converts the next block
+  on a worker thread while the device works on this one; the plain numpy
+  conversion (``convert_numpy``) is the reference it is held to;
 - the decimating front end (DecimatingSampleSource) filters on the device:
   integer ratios through the hand-written decimation kernel
   (ops/fir_decimate.py), rational ratios through the plain polyphase
@@ -31,6 +32,7 @@ import numpy as np
 
 from gypsum_tpu_torch.core.constants import PRN_REPETITIONS_PER_SECOND
 from gypsum_tpu_torch.core.events import NoMoreSamplesError
+from gypsum_tpu_torch.io.native import NativeIqReader
 
 _logger = logging.getLogger(__name__)
 
@@ -207,12 +209,30 @@ class ArraySampleSource(SampleSource):
         return ts, block
 
 
+def convert_numpy(words: np.ndarray, start: int, count: int, offset: float) -> np.ndarray:
+    """The plain version of the native reader's conversion: ``count`` complex
+    samples from ``start`` of the interleaved I/Q ``words``, as float32 less
+    ``offset``, in complex64. The tests and chip_smoke.py hold the reader to
+    it, to the bit."""
+    f = words[2 * start : 2 * (start + count)].astype(np.float32)
+    if offset:
+        f = f - np.float32(offset)
+    out = np.empty(count, dtype=np.complex64)
+    out.real = f[0::2]
+    out.imag = f[1::2]
+    return out
+
+
 class FileSampleSource(SampleSource):
     """Memory-mapped interleaved-IQ capture file.
 
     The capture holds interleaved I/Q components (2 words per complex sample,
     reference: gypsum/antenna_sample_provider.py:100-119). Deinterleaving and
-    dtype conversion happen per block.
+    dtype conversion happen per block in the native reader (io/native.py);
+    after each ``read_block`` the reader converts the next block of the same
+    length on its worker thread. A read of any other (start, count), as a
+    ``peek_block``, a decimating front end's first read or a moved cursor
+    makes, is converted on the spot.
     """
 
     def __init__(self, info: RecordingInfo) -> None:
@@ -222,6 +242,7 @@ class FileSampleSource(SampleSource):
         self._words = np.memmap(info.path, dtype=info.component_dtype, mode="r")
         self._n_samples = len(self._words) // 2
         self._cursor = 0
+        self._native = NativeIqReader(info)
 
     @property
     def attributes(self) -> StreamAttributes:
@@ -232,14 +253,7 @@ class FileSampleSource(SampleSource):
         return self._cursor / self._rate
 
     def _convert(self, start: int, count: int) -> np.ndarray:
-        words = self._words[2 * start : 2 * (start + count)]
-        f = words.astype(np.float32)
-        if self.info.component_offset:
-            f = f - np.float32(self.info.component_offset)
-        out = np.empty(count, dtype=np.complex64)
-        out.real = f[0::2]
-        out.imag = f[1::2]
-        return out
+        return self._native.read(start, count)
 
     def peek_block(self, n_ms: int) -> tuple[float, np.ndarray]:
         n = n_ms * self._spp
@@ -254,6 +268,9 @@ class FileSampleSource(SampleSource):
     def read_block(self, n_ms: int) -> tuple[float, np.ndarray]:
         ts, block = self.peek_block(n_ms)
         self._cursor += n_ms * self._spp
+        # Streaming reads are sequential and their length is stable: convert
+        # the next block on the C++ worker thread while the device computes.
+        self._native.prefetch(self._cursor, n_ms * self._spp)
         return ts, block
 
     def read_block_quantized(self, n_ms: int):

@@ -135,8 +135,8 @@ def _blob_naming(module, name):
 @pytest.mark.parametrize("named,error,match", [
     (None, ValueError, "version 999"),
     (("jax._src.array", "ArrayImpl"), CheckpointFormatError, "JAX object"),
-    (("gypsum_tpu.io.native", "NativeIqReader"), CheckpointFormatError,
-     "no module gypsum_tpu_torch.io.native"),
+    (("gypsum_tpu.core.compile_cache", "enable_persistent_cache"), CheckpointFormatError,
+     "no module gypsum_tpu_torch.core.compile_cache"),
     (("gypsum_tpu.solve.world", "NoSuchClass"), CheckpointFormatError, "has no 'NoSuchClass'"),
 ], ids=["version", "jax", "module", "name"])
 def test_version_and_class_guards(capture, tmp_path, named, error, match):
