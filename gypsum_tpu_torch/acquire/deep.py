@@ -49,17 +49,19 @@ import numpy as np
 import torch
 
 from gypsum_tpu_torch.acquire.engine import AcquisitionResult
+from gypsum_tpu_torch.core import aot
 from gypsum_tpu_torch.core.config import DeepAcquisitionConfig
 from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
 from gypsum_tpu_torch.core.device import resolve_device
 from gypsum_tpu_torch.ops.correlate import doppler_wipeoff, replica_fft_conj_table
-from gypsum_tpu_torch.ops.peak_reduce import peak_reduce
+from gypsum_tpu_torch.ops.peak_reduce import PEAK_REDUCE_KERNEL, peak_reduce
 from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS, replica_table
 
 
 class DeepAcquisitionEngine:
     """Whole-family deep search on ``device`` (CUDA unless the caller asks
-    for the CPU); one sweep per Doppler chunk."""
+    for the CPU); one sweep per Doppler chunk, each reduced by K2
+    (``libraries``), whose preload construction starts (``core/aot.py``)."""
 
     def __init__(
         self,
@@ -80,6 +82,8 @@ class DeepAcquisitionEngine:
                 f"{cfg.coherent_ms}"
             )
         self.device = resolve_device(device)
+        self.libraries = (PEAK_REDUCE_KERNEL.source,)
+        aot.preload(self.libraries, self.device)
         self.sample_rate = float(sample_rate)
         self.samples_per_prn = int(samples_per_prn)
         self.prns = tuple(prns)

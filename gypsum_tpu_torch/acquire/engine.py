@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gypsum_tpu_torch.core import aot
 from gypsum_tpu_torch.core.config import AcquisitionConfig
 from gypsum_tpu_torch.core.device import resolve_device
 from gypsum_tpu_torch.ops.correlate import (
@@ -41,7 +42,7 @@ from gypsum_tpu_torch.ops.correlate import (
     peak_strength,
     replica_fft_conj_table,
 )
-from gypsum_tpu_torch.ops.peak_reduce import peak_reduce
+from gypsum_tpu_torch.ops.peak_reduce import PEAK_REDUCE_KERNEL, peak_reduce
 from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS, replica_table
 
 
@@ -112,7 +113,10 @@ class AcquisitionEngine(nn.Module):
 
     The replica FFT table (or, with ``correlator="matmul"``, the bf16
     circulant tables, built once here on ``device``), the tiled replicas and
-    the Doppler grids are registered buffers on ``device``.
+    the Doppler grids are registered buffers on ``device``. ``libraries``
+    names the kernels the sweep launches on a CUDA device (K2's source with
+    ``use_pallas_peak_reduce``); construction starts their preload
+    (``core/aot.py``).
     """
 
     def __init__(
@@ -131,6 +135,8 @@ class AcquisitionEngine(nn.Module):
         self.samples_per_prn = int(samples_per_prn)
         self.prns = tuple(prns)
         cfg = self.config
+        self.libraries = (PEAK_REDUCE_KERNEL.source,) if cfg.use_pallas_peak_reduce else ()
+        aot.preload(self.libraries, self.device)
         offsets = None
         if center_offsets_hz is not None:
             if len(center_offsets_hz) != len(self.prns):
@@ -310,7 +316,8 @@ class AcquisitionEngine(nn.Module):
 
 # AcquisitionEngine is stateless across detect() calls: one engine per
 # distinct (rate, L, config, PRN family, device) serves every Receiver in
-# the process, so restarting a receiver does not rebuild its tables.
+# the process, so restarting a receiver does not rebuild its tables. Every
+# fetch starts the preload of the engine's kernels, as a construction does.
 _ENGINE_CACHE: dict = {}
 
 
@@ -334,4 +341,6 @@ def shared_acquisition_engine(
         eng = _ENGINE_CACHE[key] = AcquisitionEngine(
             sample_rate, samples_per_prn, config, prns, offsets, dev
         )
+    else:
+        aot.preload(eng.libraries, dev)
     return eng

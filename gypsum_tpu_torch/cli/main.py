@@ -37,6 +37,13 @@ processing rate (2.046 Msps GPS, 4.092 Msps GLONASS) go through the
 decimating front end (``--sample-rate``, ``--glonass-rate``, ``--format`` or
 the sidecar), then through the notch when ``--notch`` asks for it.
 ``synth`` runs on the host (numpy) and needs no card.
+
+Before a command runs, and before it imports torch, the CLI starts building
+the kernels and the native reader that its command and flags select on
+background threads (``core/aot.py``; not for ``synth``, ``--device cpu`` or
+``GYPSUM_AOT=0``), so that a fresh checkout's first replay compiles while
+it imports, reads and acquires. ``python -m gypsum_tpu_torch.ops.kernels``
+builds them all ahead of time.
 """
 
 from __future__ import annotations
@@ -48,12 +55,17 @@ import sys
 from gypsum_tpu_torch.cli.acquire import cmd_acquire
 from gypsum_tpu_torch.cli.replay import cmd_replay
 from gypsum_tpu_torch.cli.rtk import cmd_rtk
-from gypsum_tpu_torch.cli.sources import _add_file_source_args
+from gypsum_tpu_torch.cli.sources import (
+    GLONASS_PROCESSING_RATE,
+    PROCESSING_RATE,
+    _add_file_source_args,
+    capture_libraries,
+)
 from gypsum_tpu_torch.cli.synth import cmd_synth
+from gypsum_tpu_torch.core import aot
 
 
-def main(argv=None) -> int:
-    logging.basicConfig(level=logging.INFO, format="%(levelname).1s %(name)s: %(message)s")
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="gypsum_tpu_torch")
     parser.add_argument(
         "--device",
@@ -273,8 +285,43 @@ def main(argv=None) -> int:
                         "the stream offset/drift from the observables and "
                         "interpolate the rover onto the base epochs")
     p.set_defaults(fn=cmd_rtk)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def libraries(args) -> list[str]:
+    """The compiled libraries the command will load, told from its command,
+    flags and capture sidecars alone (``core/aot.py``): K1 for every
+    receiver (``replay``, ``rtk`` on captures), K2 for ``acquire --deep``,
+    and what each capture's source loads (``cli/sources.py:capture_libraries``).
+    ``synth`` and ``rtk`` on RINEX files load none; ``acquire`` tracks
+    nothing, so it loads no K1."""
+    if args.command == "synth":
+        return []
+    if args.command == "rtk":
+        if args.base_rinex or args.rover_rinex or not (args.base_file and args.rover_file):
+            return []
+        names = ["fixup"]
+        for path in (args.base_file, args.rover_file):
+            names += capture_libraries(path, args.sample_rate, args.format, PROCESSING_RATE)
+        return list(dict.fromkeys(names))
+    if args.command == "replay":
+        names = ["fixup"]
+    else:
+        names = ["peak_reduce"] if args.deep else []
+    for path in filter(None, (args.glonass_file, getattr(args, "glonass_l2_file", None))):
+        names += capture_libraries(path, args.glonass_rate, None, GLONASS_PROCESSING_RATE)
+    # acquire reads the GLONASS capture instead of --file when it has one.
+    if args.file and not args.rtlsdr and not (args.command == "acquire" and args.glonass_file):
+        names += capture_libraries(args.file, args.sample_rate, args.format, PROCESSING_RATE)
+    return list(dict.fromkeys(names))
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(levelname).1s %(name)s: %(message)s")
+    args = build_parser().parse_args(argv)
+    # Before the command imports torch or reads its capture: the kernels
+    # build while that happens (a no-op on --device cpu or GYPSUM_AOT=0).
+    aot.preload(libraries(args), args.device)
     if args.profile_dir:
         return run_profiled(args)
     return args.fn(args)

@@ -51,6 +51,43 @@ def _add_file_source_args(p: argparse.ArgumentParser) -> None:
                         "beamformed stream normally")
 
 
+def _capture_rate(path: str, sample_rate: float | None, fmt: str | None,
+                  default: float) -> float | None:
+    """The capture's sample rate as its source takes it: the flag, the named
+    format's, the sidecar's, or ``default`` for a ``.npy`` without a sidecar
+    (None for a raw capture with none of these: opening it raises)."""
+    if sample_rate is not None:
+        return float(sample_rate)
+    if fmt and not path.endswith(".npy"):
+        from gypsum_tpu_torch.io.sources import recording_info_for
+
+        return recording_info_for(fmt, path).sample_rate
+    sidecar = pathlib.Path(path + ".json")
+    if sidecar.exists():
+        return float(json.loads(sidecar.read_text())["sample_rate"])
+    return default if path.endswith(".npy") else None
+
+
+def capture_libraries(path: str, sample_rate: float | None, fmt: str | None,
+                      processing_rate: float) -> list[str]:
+    """The libraries that opening the capture at ``path`` loads, told from
+    its name, flags and sidecar without reading it (``core/aot.py``): the
+    native reader for a raw capture, K5 for an integer decimation. A rate
+    that cannot be told selects no K5 here; opening the capture raises."""
+    from gypsum_tpu_torch.core.aot import NATIVE_READER
+    from gypsum_tpu_torch.io.sources import resampling_ratio
+
+    names = [] if path.endswith(".npy") else [NATIVE_READER]
+    try:
+        rate = _capture_rate(path, sample_rate, fmt, processing_rate)
+    except (OSError, ValueError, KeyError, TypeError):
+        return names
+    if rate and abs(rate - processing_rate) > 1e-6 and resampling_ratio(
+            rate, processing_rate)[0] == 1:
+        names.append("fir_decimate")
+    return names
+
+
 def _open_source(args):
     from gypsum_tpu_torch.io.sources import (
         ArraySampleSource,
@@ -73,13 +110,7 @@ def _open_source(args):
                 "their own dtype (use --sample-rate or a .json sidecar for the rate)"
             )
         iq = np.load(args.file)
-        rate = args.sample_rate
-        if rate is None:
-            sidecar = pathlib.Path(args.file + ".json")
-            if sidecar.exists():
-                rate = float(json.loads(sidecar.read_text())["sample_rate"])
-            else:
-                rate = PROCESSING_RATE
+        rate = _capture_rate(args.file, args.sample_rate, None, PROCESSING_RATE)
         if iq.ndim == 2:
             # [N_elements, T] antenna-array capture (synth --array-out).
             if not getattr(args, "beamform", False):
@@ -151,14 +182,7 @@ def _open_glonass_source(path: str, sample_rate: float | None, device: str):
     )
 
     if path.endswith(".npy"):
-        rate = sample_rate
-        if rate is None:
-            sidecar = pathlib.Path(path + ".json")
-            rate = (
-                float(json.loads(sidecar.read_text())["sample_rate"])
-                if sidecar.exists()
-                else GLONASS_PROCESSING_RATE
-            )
+        rate = _capture_rate(path, sample_rate, None, GLONASS_PROCESSING_RATE)
         source = ArraySampleSource(np.load(path), rate)
     else:
         info = (

@@ -9,7 +9,9 @@ for this host's CPU, so a build directory shared with another machine never
 serves it a library that machine cannot run. Nothing is written into the
 package. A build that fails raises with the compiler's output: there is no
 numpy fallback (the plain numpy conversion, ``io/sources.py:convert_numpy``,
-is the reference the tests hold this reader to, not a second path).
+is the reference the tests hold this reader to, not a second path). The
+library loads once per process through ``core/aot.py``, which the CLI uses
+to start its build on a background thread before it reads the capture.
 """
 
 from __future__ import annotations
@@ -20,9 +22,12 @@ import logging
 import os
 import platform
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
+
+from gypsum_tpu_torch.core import aot
 
 _logger = logging.getLogger(__name__)
 
@@ -39,7 +44,6 @@ _DTYPE_CODES = {
 }
 
 _FLOAT_P = ctypes.POINTER(ctypes.c_float)
-_libs: dict[Path, ctypes.CDLL] = {}
 
 
 def library_path() -> Path:
@@ -69,27 +73,36 @@ def build() -> Path:
     return lib
 
 
-def _load() -> ctypes.CDLL:
-    path = build()
-    lib = _libs.get(path)
-    if lib is None:
-        lib = ctypes.CDLL(str(path))
-        lib.iq_open.restype = ctypes.c_void_p
-        lib.iq_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_float]
-        lib.iq_n_samples.restype = ctypes.c_longlong
-        lib.iq_n_samples.argtypes = [ctypes.c_void_p]
-        lib.iq_read.restype = ctypes.c_longlong
-        lib.iq_read.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, _FLOAT_P]
-        lib.iq_close.restype = None
-        lib.iq_close.argtypes = [ctypes.c_void_p]
-        lib.iq_prefetch_start.restype = ctypes.c_int
-        lib.iq_prefetch_start.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-        lib.iq_prefetch_take.restype = ctypes.c_longlong
-        lib.iq_prefetch_take.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, _FLOAT_P,
-        ]
-        _libs[path] = lib
-    return lib
+def timed_build() -> tuple[Path, float]:
+    """``build()`` and its seconds (0.0 when the build was already there)."""
+    if library_path().exists():
+        return library_path(), 0.0
+    t0 = time.perf_counter()
+    lib = build()
+    return lib, time.perf_counter() - t0
+
+
+def open_library() -> tuple[ctypes.CDLL, float]:
+    """Build the reader unless built, load it and bind its functions: (the
+    library, the build's seconds). Called through ``core/aot.py:library``,
+    which runs it once per process."""
+    path, seconds = timed_build()
+    lib = ctypes.CDLL(str(path))
+    lib.iq_open.restype = ctypes.c_void_p
+    lib.iq_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_float]
+    lib.iq_n_samples.restype = ctypes.c_longlong
+    lib.iq_n_samples.argtypes = [ctypes.c_void_p]
+    lib.iq_read.restype = ctypes.c_longlong
+    lib.iq_read.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, _FLOAT_P]
+    lib.iq_close.restype = None
+    lib.iq_close.argtypes = [ctypes.c_void_p]
+    lib.iq_prefetch_start.restype = ctypes.c_int
+    lib.iq_prefetch_start.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+    lib.iq_prefetch_take.restype = ctypes.c_longlong
+    lib.iq_prefetch_take.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, _FLOAT_P,
+    ]
+    return lib, seconds
 
 
 class NativeIqReader:
@@ -100,7 +113,7 @@ class NativeIqReader:
     ``prefetched_reads`` counts the reads served by the prefetch."""
 
     def __init__(self, info) -> None:
-        lib = _load()
+        lib = aot.library(aot.NATIVE_READER)  # joins a preload in flight
         code = _DTYPE_CODES[np.dtype(info.component_dtype).type]
         self._lib = lib
         self._handle = lib.iq_open(str(info.path).encode(), code, float(info.component_offset))

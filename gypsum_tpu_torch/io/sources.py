@@ -291,6 +291,15 @@ class FileSampleSource(SampleSource):
         return ts, planes, float(self.info.component_offset)
 
 
+def resampling_ratio(in_rate: float, out_rate: float) -> tuple[int, int]:
+    """(up, down), coprime: out_rate = in_rate * up / down. ``up == 1`` is an
+    integer decimation, which runs through the decimation kernel (K5)."""
+    from fractions import Fraction
+
+    ratio = Fraction(int(round(out_rate)), int(round(in_rate)))
+    return ratio.numerator, ratio.denominator
+
+
 class DecimatingSampleSource(SampleSource):
     """Resampling front end: wraps a raw-rate source and delivers blocks at
     the processing rate (rational ratio up/down, e.g. 10 Msps -> 2.046 Msps =
@@ -306,10 +315,12 @@ class DecimatingSampleSource(SampleSource):
     decimation kernel on a CUDA device (with the taps reversed: the kernel
     convolves, as the TPU kernel does, and this source correlates, as the
     JAX package's source does); a rational ratio runs the plain
-    polyphase resampler there. The ``SampleSource`` contract hands numpy
-    blocks to the receiver (which reads them on the host for acquisition and
-    uploads them for tracking), so each block's raw samples cross to the
-    device and its decimated samples come back.
+    polyphase resampler there; an integer decimation on a CUDA device starts
+    the kernel's preload when the source opens (``core/aot.py``). The
+    ``SampleSource`` contract hands numpy blocks to the receiver (which reads
+    them on the host for acquisition and uploads them for tracking), so each
+    block's raw samples cross to the device and its decimated samples come
+    back.
     """
 
     def __init__(
@@ -319,16 +330,17 @@ class DecimatingSampleSource(SampleSource):
         taps: np.ndarray | None = None,
         device: str = "cuda",
     ) -> None:
-        from fractions import Fraction
-
+        from gypsum_tpu_torch.core import aot
         from gypsum_tpu_torch.core.device import resolve_device
         from gypsum_tpu_torch.ops.decimate import decimation_filter, rational_filter
+        from gypsum_tpu_torch.ops.fir_decimate import FIR_DECIMATE_KERNEL
 
         self.device = resolve_device(device)
         self.inner = inner
         self._out_rate = float(out_rate)
-        ratio = Fraction(int(round(out_rate)), int(round(inner.attributes.sample_rate)))
-        self.up, self.down = ratio.numerator, ratio.denominator
+        self.up, self.down = resampling_ratio(inner.attributes.sample_rate, out_rate)
+        self.libraries = (FIR_DECIMATE_KERNEL.source,) if self.up == 1 else ()
+        aot.preload(self.libraries, self.device)
         if taps is None:
             taps = (
                 decimation_filter(self.down)

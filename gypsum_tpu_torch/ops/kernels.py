@@ -8,25 +8,37 @@ a build takes seconds. The library name carries a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source is never
 served a stale build. Nothing here runs
 when a module is imported: the CPU tests import every module and this
-machine may have no ``nvcc``.
+machine may have no ``nvcc``. Loading goes through ``core/aot.py``, which
+loads each library once per process and lets a path start the build on a
+background thread before the first launch (a preload). This module imports
+torch only when a kernel launches, so the CLI can start a preload before
+it imports torch.
 
 Each entry point returns ``cudaGetLastError()``; the launch raises when it
 is not 0. Every ``CudaKernel`` counts its launches, so a run can show that
 the main path went through the kernel.
+
+    python -m gypsum_tpu_torch.ops.kernels
+
+builds every CUDA source under ``csrc/`` and the native reader ahead of
+time, in parallel, and prints each one's seconds: the next process's first
+launches then find their libraries built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import torch
+from gypsum_tpu_torch.core import aot
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -39,17 +51,24 @@ NVCC_FLAGS = (
 )
 
 
-# The current stream's handle straight from the binding, where this build of
-# PyTorch has it: torch.cuda.current_stream() builds a Stream object per call,
-# which costs as much as the launch itself.
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_stream_handle = None
 
 
 def current_stream_handle() -> int:
     """The handle of PyTorch's current CUDA stream on the current device."""
-    if _raw_stream is not None:
-        return _raw_stream(torch.cuda.current_device())
-    return torch.cuda.current_stream().cuda_stream
+    global _stream_handle
+    if _stream_handle is None:
+        import torch
+
+        # Straight from the binding, where this build of PyTorch has it:
+        # torch.cuda.current_stream() builds a Stream object per call, which
+        # costs as much as the launch itself.
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        if raw is not None:
+            _stream_handle = lambda: raw(torch.cuda.current_device())  # noqa: E731
+        else:
+            _stream_handle = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    return _stream_handle()
 
 
 def _nvcc() -> str:
@@ -101,6 +120,14 @@ def build_all(sources: list[str]) -> dict[str, float]:
         return dict(zip(sources, pool.map(build, sources)))
 
 
+def open_library(source: str) -> tuple[ctypes.CDLL, float]:
+    """Build ``csrc/<source>.cu`` unless built, and load it: (the library,
+    the build's seconds). Called through ``core/aot.py:library``, which runs
+    it once per process."""
+    seconds = build(source)
+    return ctypes.CDLL(str(library_path(source))), seconds
+
+
 class CudaKernel:
     """One C entry point of one CUDA source, built and loaded at first
     launch, with a count of its launches."""
@@ -113,9 +140,8 @@ class CudaKernel:
         self._fn = None
 
     def _load(self):
-        build(self.source)
-        lib = ctypes.CDLL(str(library_path(self.source)))
-        fn = getattr(lib, self.symbol)
+        # Joins a preload of the library in flight, or builds it here.
+        fn = aot.library(self.source)[self.symbol]
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         self._fn = fn
@@ -148,3 +174,30 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tup
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def prebuild() -> dict[str, float]:
+    """Build every CUDA source under ``csrc/`` and the native reader, all at
+    once (one compiler process each); {what: seconds}, 0.0 for a build that
+    was already there."""
+    from gypsum_tpu_torch.io import native
+
+    jobs = {f"csrc/{p.name}": functools.partial(build, p.stem)
+            for p in sorted(CSRC_DIR.glob("*.cu"))}
+    jobs[f"native/{native.SOURCE.name}"] = lambda: native.timed_build()[1]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = {what: pool.submit(fn) for what, fn in jobs.items()}
+        return {what: f.result() for what, f in futures.items()}
+
+
+def main() -> int:
+    t0 = time.perf_counter()
+    for what, seconds in prebuild().items():
+        print(f"{what}: {f'built in {seconds:.2f} s' if seconds else 'already built'}")
+    print(f"all built in {time.perf_counter() - t0:.2f} s (wall, in parallel) under "
+          f"{BUILD_DIR.parent}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

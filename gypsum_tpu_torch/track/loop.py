@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gypsum_tpu_torch.core import aot
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.device import resolve_device
 from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS, replica_table
@@ -150,6 +151,16 @@ def block_fn_from_packed(packed):
     return track_block
 
 
+# Block trackers are pure functions of their (hashable) build parameters:
+# each closes over read-only tables (the sample times, the farm's channel
+# groups, the fixup's constants) and keeps no state between calls (the
+# carry and the pinned output copies belong to each TrackerBank). So one is
+# shared process-wide, as gypsum_tpu/track/loop.py:_TRACK_FN_CACHE shares
+# its jitted programs, and a restarted receiver (a checkpoint's, a
+# campaign's, a second run in one process) rebuilds no tracker tables.
+_TRACK_FN_CACHE: dict = {}
+
+
 def make_track_block_fn(
     config: TrackingConfig,
     samples_per_prn: int,
@@ -159,7 +170,9 @@ def make_track_block_fn(
     input_offset: float = 0.0,
     device: str | torch.device = "cuda",
 ):
-    """Build the block-tracking function on ``device``.
+    """Build (or fetch the process-wide shared) block-tracking function on
+    ``device``, and start the preload of the kernels it launches
+    (``core/aot.py``; ``f.libraries`` names them).
 
     Returns ``f(state, samples_block, replicas_wide) -> (state', outputs)``
     (see track/matmul.py:make_matmul_track_block_fn); ``f.packed`` returns the
@@ -181,8 +194,31 @@ def make_track_block_fn(
     L + 2 K_eff window per channel and no lag matrix, so there is no such
     fallback here.
     """
-    cfg = config
     dev = resolve_device(device)
+    farm_key = (
+        None
+        if stream_of_channel is None
+        else np.asarray(stream_of_channel, dtype=np.int32).tobytes()
+    )
+    # The key of gypsum_tpu/track/loop.py:make_track_block_fn, with the
+    # device where the JAX package keys its backend.
+    key = (config, int(samples_per_prn), float(sample_rate), int(n_channels),
+           float(input_offset), farm_key, str(dev))
+    try:
+        fn = _TRACK_FN_CACHE.get(key)
+    except TypeError:  # unhashable config field: build uncached
+        key, fn = None, None
+    if fn is None:
+        fn = _build_track_block_fn(config, samples_per_prn, sample_rate, n_channels,
+                                   stream_of_channel, input_offset, dev)
+        if key is not None:
+            _TRACK_FN_CACHE[key] = fn
+    aot.preload(fn.libraries, dev)
+    return fn
+
+
+def _build_track_block_fn(cfg, samples_per_prn, sample_rate, n_channels, stream_of_channel,
+                          input_offset, dev):
     use_matmul = cfg.use_matmul_tracker
     if use_matmul is None:
         use_matmul = cfg.use_pallas_block_tracker is not True
@@ -261,7 +297,9 @@ def _make_block_kernel_wrapper(cfg, length, fs, input_offset, device):
         # forced); the offset column rides through unchanged.
         return state_from_carry(fin, state.carrier_offset), outs
 
-    return block_fn_from_packed(track_block_packed)
+    fn = block_fn_from_packed(track_block_packed)
+    fn.libraries = (tb.TRACK_BLOCK_KERNEL.source,)
+    return fn
 
 
 class _Dispatched(NamedTuple):

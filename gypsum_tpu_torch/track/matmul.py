@@ -81,7 +81,10 @@ def make_matmul_track_block_fn(
     [B, N, L, 2] / [B, N, L]) on ``device``, ``replicas_wide`` [S, >= 2L + 2K]
     float32 on ``device``; the new state has [S] tensor leaves and the
     outputs are a TrackBlockOutputs of [B, S] tensors. ``f.packed`` returns
-    the outputs as one [B, N_OUT, S] float32 tensor instead.
+    the outputs as one [B, N_OUT, S] float32 tensor instead. ``f.libraries``
+    names the kernels it launches on a CUDA device (K1's source unless
+    ``fixup_backend="scan"``), which ``track/loop.py:make_track_block_fn``
+    preloads.
     """
     from gypsum_tpu_torch.track.loop import (
         TrackState,
@@ -211,4 +214,5 @@ def make_matmul_track_block_fn(
     # against its plain version on real correlations.
     track_block.phase1 = phase1
     track_block.fixup_params = params
+    track_block.libraries = () if backend == "scan" else (fx.FIXUP_KERNEL.source,)
     return track_block

@@ -39,7 +39,7 @@ from gypsum_tpu_torch.core.device import resolve_device
 from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex, to_planes
 from gypsum_tpu_torch.ops import fixup as fx
 from gypsum_tpu_torch.ops.correlate import ascending_lag_rows, lag_window
-from gypsum_tpu_torch.ops.wipeoff_lag import wipeoff_lag_correlate
+from gypsum_tpu_torch.ops.wipeoff_lag import WIPEOFF_LAG_KERNEL, wipeoff_lag_correlate
 
 
 def make_scan_track_block_fn(
@@ -53,7 +53,8 @@ def make_scan_track_block_fn(
 ):
     """Build the scan tracker on ``device`` (CUDA unless the caller asks for
     the CPU); the contract of track/matmul.py:make_matmul_track_block_fn
-    (``f.packed`` included)."""
+    (``f.packed`` and ``f.libraries`` included: K4's source on the kernel
+    route)."""
     from gypsum_tpu_torch.track.loop import (
         block_fn_from_packed,
         carry_rows,
@@ -162,4 +163,6 @@ def make_scan_track_block_fn(
             carry, outs[b] = fx.loop_filter_step(carry, sel_r, sel_i, cp_int, advance, params)
         return state_from_carry(torch.stack(carry.rows()), state.carrier_offset), outs
 
-    return block_fn_from_packed(track_block_packed)
+    fn = block_fn_from_packed(track_block_packed)
+    fn.libraries = (WIPEOFF_LAG_KERNEL.source,) if use_kernel else ()
+    return fn
