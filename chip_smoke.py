@@ -164,7 +164,28 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    listening, in a scratch working directory, to its fix; and ``replay
    --duration 3 --profile-dir``, its trace parsed, its CUDA kernel events
    and K1's counted;
-13. the cold chain (``run_cold_chain``): the port and this script copied
+13. the campaign (``run_campaign``, tools/campaign_torch.py): the scenes
+   of six JAX receiver tests synthesized in the scene pool and replayed
+   through the port in the card's default pipelined mode, each held to its
+   test's asserts and to the JAX receiver's pipelined record in
+   tools/campaign_reference.jsonl (made on the CPU by
+   tools/campaign_reference.py; equal status and satellite sets, the epoch
+   and position differences logged beside the parity ladder's bars): an
+   SBAS GEO acquired, MT9 decoded and a 5-SV fix within 5 m
+   (tests/test_sbas.py:187-256), MT1 + MT2 fast corrections on (within
+   2 m) and off (beyond 3 m; tests/test_sbas_corrections.py:93-150), the
+   rescue tier on a 12 Hz Doppler step at 500 ms blocks through
+   ``TrackerBank`` on the default tracker (K1), on and off
+   (tests/test_rescue.py:24-101), an outage, reacquisition and geometry
+   reseed back in the fix within 2.5 s (tests/test_reseed.py:71-130), a
+   meacon from 12 s with no alert before and vestigial alerts on >= 3 PRNs
+   after (tests/test_spoofing.py:105-150), and TDCP velocity within
+   0.02 m/s with the Doppler fallback within 1.5 m/s
+   (tests/test_tdcp.py:60-100); then campaign seeds 0, 1, 11, 17 and seed 0
+   under a CW jammer through the notch, each at its record's status and
+   satellite sets and within 15 m; K1's launches counted at 200 and 500 ms
+   blocks;
+14. the cold chain (``run_cold_chain``): the port and this script copied
    into a temporary directory as a fresh checkout has them (no build/, no
    bytecode), and ``python -m gypsum_tpu_torch replay --file <23 s GPS .npy>
    --until-fix`` run there in processes of their own, in turns: cold with
@@ -183,13 +204,15 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    its preload sites asked for are those it launched (the native reader
    opened), and with the preload on none was built at a launch; one line
    lists each path's two lists;
-14. a ``{"kernels": [...]}`` line with each kernel's launches, error and
+15. a ``{"kernels": [...]}`` line with each kernel's launches, error and
    both times beside its bound, and an entry per kernel at its GLONASS
    inputs (launches from the GLONASS replays), at the deep sweep's and at
    the mesh's (K1 M: a shard's S = 6 and 3, the farm's S = 64; launches
-   from M2's rank 0, the other ranks' and the farm's beside them); K1's
+   from M2's rank 0, the other ranks' and the farm's beside them), and K1
+   at 200 and 500 ms blocks (K1 B=200 and B=500: [200, 12, 27] and
+   [500, 12, 31] held to the bit at step 3, launches from step 13); K1's
    entry carries its launches per ``rtk`` run (``rtk_launches``);
-15. last line: ``{"ok": true, "device": {...}}``.
+16. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 It exits with an error at once when no CUDA device is present.
@@ -197,10 +220,15 @@ It exits with an error at once when no CUDA device is present.
 ``python3 chip_smoke.py --kernels-only`` stops after step 3, and
 ``--kernels-only=K2,K4`` checks and times only the kernels it names (K1G,
 K2G, K4G and K5G name the GLONASS checks, K2D the deep sweep's, K1M the
-mesh's): a short run for work on a kernel (no replay, so no launch counts
+mesh's, K1B200 and K1B500 K1 at 200 and 500 ms blocks): a short run for work on a kernel (no replay, so no launch counts
 and no result line). ``--mesh-only`` runs K1 M, the farm, the default
 replay of the GPS scene and step 11 (no result line); ``--cold-only`` runs
-step 13 alone, on the GPS scene (no result line). The checks call the wrappers with their oldest signatures (K4's
+step 14 alone, on the GPS scene (no result line); ``--campaign-only`` holds
+K1 at 200 and 500 ms blocks and runs every record of
+tools/campaign_reference.jsonl through the port on the card in its
+recorded mode (synthesis in worker processes), each held to its record,
+all before it fails, with the pass counts per level (no result line; the
+records go to build/campaign_set.jsonl). The checks call the wrappers with their oldest signatures (K4's
 optional ``n_split`` is probed), so a copy of this script and of
 ``csrc/empty.cu`` in a checkout of an earlier commit times that commit's
 kernels the same way, for a comparison of two commits within one run on one
@@ -467,6 +495,43 @@ def check_fixup(dev, sats, samples) -> dict:
             bound_ms, bound_by = fixup_bound(corr_r, params)
     return {
         "name": "K1 fixup",
+        "route": "cuda",
+        "source": "gypsum_tpu_torch/csrc/fixup.cu",
+        "replaces": "gypsum_tpu/ops/pallas_fixup.py:58",
+        "max_abs_err": worst,
+        **timing_keys(times),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
+def check_fixup_block_length(dev, sats, samples, b_ms: int) -> dict:
+    """K1 at a campaign block length (200 or 500 ms: tools/campaign_torch.py
+    draws both, the rescue scenes run at 500): the phase-1 correlations of
+    the first ``b_ms`` ms of the synthetic block through ``hold_fixup`` (to
+    the bit), timed both ways beside the plain version. The lag window
+    narrows with the block (track/matmul.py:lag_window_size, its margin the
+    block's worst code drift): [200, 12, 27] and [500, 12, 31]."""
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.ops import fixup as fx
+    from gypsum_tpu_torch.track.matmul import lag_window_size
+
+    cfg = TrackingConfig(block_size_ms=b_ms)
+    bank, replicas = checks_bank(sats, dev, cfg)
+    _, init, corr_r, corr_i = bank._fn.phase1(bank.state, samples[:b_ms], replicas)
+    params = bank._fn.fixup_params
+    shape = (b_ms, N_CH, lag_window_size(cfg, L))
+    if corr_r.shape != shape:
+        raise AssertionError(f"unexpected phase-1 shape {tuple(corr_r.shape)}, not {shape}")
+    worst = hold_fixup(f"B={b_ms} {list(shape)}", init, corr_r, corr_i, params)
+    times = two_way({
+        "kernel": (lambda: fx.fixup_cuda(init, corr_r, corr_i, params), 20, 2),
+        "plain": (lambda: fx.fixup_reference(init, corr_r, corr_i, params), 1, 0),
+    })
+    bound_ms, bound_by = fixup_bound(corr_r, params)
+    return {
+        "name": f"K1 fixup B={b_ms}",
+        "shape": list(shape),
         "route": "cuda",
         "source": "gypsum_tpu_torch/csrc/fixup.cu",
         "replaces": "gypsum_tpu/ops/pallas_fixup.py:58",
@@ -1408,8 +1473,13 @@ def synthesize_rtk(name: str) -> np.ndarray:
 
 
 def synthesize_to(name: str, path: str) -> float:
-    """Worker process: synthesize scene ``name`` into ``path`` (.npy);
-    returns the seconds it took."""
+    """Worker process: synthesize scene ``name`` into ``path`` (.npy, or
+    for a campaign capture tools/campaign_torch.py's .npz); returns the
+    seconds it took."""
+    if name.startswith("campaign_"):
+        from tools import campaign_torch as twin
+
+        return twin.synthesize_to(campaign_spec(name), path)
     t0 = time.perf_counter()
     np.save(path, synthesize_named(name))
     return time.perf_counter() - t0
@@ -1440,6 +1510,16 @@ class Scenes:
         log(f"scene {name}: synthesized in {seconds:.1f} s (host, worker process; waited "
             f"{time.perf_counter() - t0:.1f} s for it)")
         return np.load(self.path(name))
+
+    def get_campaign(self, name: str) -> tuple[dict, dict, float]:
+        """A campaign capture's (arrays, facts, seconds its synthesis took)."""
+        from tools import campaign_torch as twin
+
+        t0 = time.perf_counter()
+        seconds = self._futures[name].result()
+        log(f"scene {name}: synthesized in {seconds:.1f} s (host, worker process; waited "
+            f"{time.perf_counter() - t0:.1f} s for it)")
+        return (*twin.load_synthesized(self.path(name)), seconds)
 
     def close(self) -> None:
         self._pool.shutdown(wait=True, cancel_futures=True)
@@ -3297,6 +3377,168 @@ def run_host_surfaces(dev, scenes: "Scenes") -> None:
     log(f"raw captures, dashboard, profile: {time.perf_counter() - t0:.1f} s wall")
 
 
+# ---------------------------------------------------------- the campaign
+
+
+CAMPAIGN_REFERENCE = ROOT / "tools" / "campaign_reference.jsonl"
+# The full run's campaign trials (tools/campaign_torch.py): seeds 0 (8 SVs,
+# 200 ms blocks, moving, a GEO with two fast-correction biases), 1 (6 SVs,
+# 500 ms, moving with drift, a GEO), 11 (4 SVs, 200 ms), 17 (7 SVs, 500 ms,
+# drift, a GEO with two biases) and seed 0 under a CW jammer through the
+# notch front end. ``--campaign-only`` runs the whole recorded set.
+CAMPAIGN_TRIALS = [("gps", 0, "none"), ("gps", 1, "none"), ("gps", 11, "none"),
+                   ("gps", 17, "none"), ("gps", 0, "cw")]
+CAMPAIGN_CAPTURES = ["campaign_sbas_ranging", "campaign_fast_corrections", "campaign_rescue",
+                     "campaign_outage_reseed", "campaign_meaconing", "campaign_tdcp",
+                     *(f"campaign_gps{s}" + ("" if imp == "none" else f"_{imp}")
+                       for _, s, imp in CAMPAIGN_TRIALS)]
+
+
+def campaign_spec(capture: str) -> dict:
+    """The tools/campaign_torch.py spec a campaign capture synthesizes."""
+    from tools import campaign_torch as twin
+
+    name = capture.removeprefix("campaign_")
+    if not name.startswith("gps"):
+        return twin.scene_spec(next(s for s in twin.SCENES if twin.capture_of(s) == name))
+    seed, _, impairment = name.removeprefix("gps").partition("_")
+    return twin.gps_spec(int(seed), impairment or "none")
+
+
+def campaign_runs() -> list[tuple[dict, str]]:
+    """(spec, capture) of the full run's campaign phase: the nine scene runs
+    (pairs share a capture) and the five trials."""
+    from tools import campaign_torch as twin
+
+    runs = [(twin.scene_spec(s), f"campaign_{twin.capture_of(s)}") for s in twin.SCENES]
+    return runs + [(campaign_spec(c), c) for c in CAMPAIGN_CAPTURES if c.startswith("campaign_gps")]
+
+
+def campaign_block_ms(spec: dict) -> int:
+    """The block length a campaign run tracks at (K1's B)."""
+    from tools import campaign_torch as twin
+
+    if spec["kind"] == "gps":
+        return twin.make_scenario(spec["seed"]).block_size_ms
+    return twin.RESCUE_BLOCK_MS if spec.get("scene", "").startswith("rescue") else 1000
+
+
+def hold_campaign_record(rec: dict, reference: list[dict], gate: bool = True) -> dict:
+    """One campaign record on the card against its JAX record: not an
+    error, the status and every fix's satellite set equal the record's
+    (tools/campaign_torch.py:compare, the card's rung), and with ``gate``
+    a scene at its test's bars and a trial within 15 m (status ``pass``).
+    Returns the differences beside the ladder's bars."""
+    from tools import campaign_torch as twin
+
+    label = f"{twin.spec_label(rec)} (pipelined={rec['pipelined']})"
+    if rec["status"] == "error":
+        raise AssertionError(f"campaign {label}: {rec['error']}")
+    ref = twin.reference_for(reference, rec, rec["pipelined"])
+    if ref is None:
+        raise AssertionError(f"campaign {label}: no JAX record in {CAMPAIGN_REFERENCE.name}")
+    diffs = twin.compare(rec, ref, ladder=False)
+    if diffs:
+        raise AssertionError(f"campaign {label} (seed {rec.get('seed')}) diverges from the JAX "
+                             "record:\n" + "\n".join(diffs))
+    if gate and rec["status"] != "pass":
+        raise AssertionError(f"campaign {label}: {rec['status']}, failed bars "
+                             f"{rec.get('failed_bars')}, error {rec.get('position_error_m')} m")
+    return twin.differences(rec, ref)
+
+
+def run_campaign(dev, scenes: "Scenes", k1b: dict) -> None:
+    """The six scenes of the JAX receiver tests (nine runs) and five
+    campaign trials through the port on the card in its default pipelined
+    mode, each held to its test's bars and to its pipelined JAX record
+    (``hold_campaign_record``); K1's launches counted per block length."""
+    from tools import campaign_torch as twin
+
+    t_phase = time.perf_counter()
+    reference = twin.load_records(CAMPAIGN_REFERENCE)
+    api = twin.port_api(str(dev))
+    records = []
+    for spec, capture in campaign_runs():
+        arrays, facts, synth_s = scenes.get_campaign(capture)
+        block_ms = campaign_block_ms(spec)
+        reset_launches()
+        with preload_window(f"campaign {twin.spec_label(spec)}"):
+            rec = twin.replay(spec, arrays, facts, api)
+            torch.cuda.synchronize()
+        n = launches()
+        rec["synthesis_s"] = synth_s
+        del arrays
+        if not rec["pipelined"]:
+            raise AssertionError(f"campaign {twin.spec_label(spec)} ran unpipelined")
+        if n["K1"] == 0:
+            raise AssertionError(f"campaign {twin.spec_label(spec)} never launched K1: {n}")
+        if f"B{block_ms}" in k1b:
+            k1b[f"B{block_ms}"].setdefault("launches_by_run", {})[twin.spec_label(spec)] = n["K1"]
+            k1b[f"B{block_ms}"]["launches"] = k1b[f"B{block_ms}"].get("launches", 0) + n["K1"]
+        d = hold_campaign_record(rec, reference)
+        records.append(rec)
+        log(f"campaign {twin.summary_line(rec)}; K1 {n['K1']} launches at B = {block_ms}; "
+            f"against the pipelined JAX record: status and satellite sets equal, first fix "
+            f"epoch {d['first_fix_epoch_diff_s']} s apart (ladder's bar 0), fix epochs equal "
+            f"{d['fix_epochs_equal']}, positions up to {d['max_position_diff_m']} m apart "
+            f"(bar 1), error difference {d['error_diff_m']} m")
+    bars = twin.pair_bars(records)
+    if bars:
+        raise AssertionError("campaign: " + "; ".join(bars))
+    log(f"campaign: {len(records)} runs met their bars and matched their JAX records; "
+        f"replays {sum(r['replay_s'] for r in records):.2f} s, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall")
+
+
+def run_campaign_set(dev, k1b: dict) -> None:
+    """``--campaign-only``: every record of tools/campaign_reference.jsonl
+    through the port on the card in its recorded mode (synthesis in worker
+    processes, the replays here), each held by ``hold_campaign_record``;
+    every trial runs before the phase fails, and the log has the pass counts
+    per level and each difference."""
+    from tools import campaign_torch as twin
+
+    t_phase = time.perf_counter()
+    reference = twin.load_records(CAMPAIGN_REFERENCE)
+    specs = [{k: r[k] for k in ("kind", "seed", "impairment", "scene") if k in r}
+             for r in reference]
+    modes = [r["pipelined"] for r in reference]
+    records, failures = [], []
+    jobs = max(1, (os.cpu_count() or 2) - 2)
+    by_length = Counter()
+    reset_launches()
+    for rec in twin.run_specs(specs, str(dev), jobs, modes=modes):
+        # Counted from the last record's replay to this one's: only the
+        # replays launch (the workers synthesize on the host).
+        rec["k1_launches"] = launches()["K1"]
+        by_length[campaign_block_ms(rec)] += rec["k1_launches"]
+        reset_launches()
+        rec["phase1"] = "bf16"
+        records.append(rec)
+        try:
+            d = hold_campaign_record(rec, reference, gate=False)
+            log(f"campaign set [{len(records)}/{len(specs)}] pipelined={rec['pipelined']} "
+                f"{twin.summary_line(rec)}; against JAX: {json.dumps(d)}")
+        except AssertionError as exc:
+            failures.append(str(exc))
+            log(f"campaign set [{len(records)}/{len(specs)}] FAILED: {exc}")
+    for key, entry in k1b.items():
+        entry["launches_campaign_set"] = by_length[int(key[1:])]
+    out = ROOT / "build" / "campaign_set.jsonl"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text("".join(json.dumps(r) + "\n" for r in records))
+    twin.report(records, reference, ladder=False)
+    for bar in twin.pair_bars(records):
+        failures.append(bar)
+    log(f"campaign set: {len(records)} runs, {sum(r['status'] in twin.ACCEPTED for r in records)} "
+        f"passed; synthesis {sum(r['synthesis_s'] for r in records):.1f} s (worker processes), "
+        f"replays {sum(r['replay_s'] for r in records):.1f} s; K1 launches by block length "
+        f"{dict(sorted(by_length.items()))}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall; records in {out.relative_to(ROOT)}")
+    if failures:
+        raise AssertionError(f"campaign set: {len(failures)} failure(s):\n" + "\n".join(failures))
+
+
 # ------------------------------------------------------- the cold chain
 
 
@@ -3962,9 +4204,10 @@ def main() -> int:
     flags = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
     if flags:
         return smoke(dev, flags[0].partition("=")[2], None)
-    short = next((m for m in ("mesh", "cold") if f"--{m}-only" in sys.argv[1:]), None)
+    short = next((m for m in ("mesh", "cold", "campaign") if f"--{m}-only" in sys.argv[1:]),
+                 None)
     tmp = tempfile.TemporaryDirectory()
-    scenes = Scenes(["gps"] if short else SCENE_NAMES, tmp.name)
+    scenes = Scenes({None: SCENE_NAMES, "campaign": []}.get(short, ["gps"]), tmp.name)
     try:
         return smoke(dev, short, scenes)
     finally:
@@ -3977,7 +4220,7 @@ def main() -> int:
 # starts first.
 SCENE_NAMES = ["gps", "array", "gps_8x", "fade", "glonass", "glonass_8x", "dual_gps",
                "dual_glonass", "rtk_base", "rtk_rover", "iono_l1", "iono_l2", "notch",
-               "rtk_clock"]
+               "rtk_clock", *CAMPAIGN_CAPTURES]
 
 
 def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
@@ -4042,6 +4285,8 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
         "K5G": lambda: check_fir_decimate_glonass(dev),
         "K2D": lambda: check_peak_reduce_deep(dev, *deep_inputs()),
         "K1M": lambda: check_fixup_mesh(dev, sats, samples),
+        "K1B200": lambda: check_fixup_block_length(dev, sats, samples, 200),
+        "K1B500": lambda: check_fixup_block_length(dev, sats, samples, 500),
     }
     if only == "mesh":
         # A short run for work on scale-out (no result line).
@@ -4052,6 +4297,14 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
         recv = run_receiver(scenes.get("gps"), rx, dev)[0]
         run_mesh(scenes, mesh_reference(recv), rx, k1m)
         log(json.dumps({"kernels": [k1m]}))
+        return 0
+    if only == "campaign":
+        # The whole recorded campaign set (no result line).
+        k1b = {"B200": checks["K1B200"](), "B500": checks["K1B500"]()}
+        del samples
+        torch.cuda.empty_cache()
+        run_campaign_set(dev, k1b)
+        log(json.dumps({"kernels": list(k1b.values())}))
         return 0
     if only is not None:
         # A short run for work on a kernel: the checks of the kernels named
@@ -4215,6 +4468,11 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     # Raw captures through the native reader, the dashboard and the tracker
     # figures, and the CLI's --profile-dir.
     run_host_surfaces(dev, scenes)
+
+    # The receiver paths of six JAX tests and five campaign trials, each held
+    # to its test's bars and to the JAX receiver's record (K1 at 200 and
+    # 500 ms blocks gets its launches here).
+    run_campaign(dev, scenes, {"B200": entries["K1B200"], "B500": entries["K1B500"]})
 
     # The cold chain: the CLI's first replay from a fresh tree with and
     # without the kernel preload, a cold start split, and a restart.

@@ -27,6 +27,7 @@ for name in names:
     if not name.endswith("__main__"):
         importlib.import_module(name)
 import chip_smoke
+import tools.campaign_torch
 from gypsum_tpu_torch.runtime.checkpoint import read_blob
 blob = read_blob(sys.argv[1])  # a checkpoint the JAX package wrote
 assert type(blob["world"]).__module__ == "gypsum_tpu_torch.solve.world"
@@ -62,12 +63,15 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path):
     assert bad == "[]", f"JAX or the JAX package was loaded: {bad}"
 
 
-_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|gypsum_tpu)(?!\w)", re.MULTILINE)
+# JAX, the JAX package, and tools/campaign.py (it imports JAX at load).
+_FORBIDDEN = re.compile(r"^\s*(?:(?:from|import)\s+(?:jax|jaxlib|gypsum_tpu|tools\.campaign)(?!\w)"
+                        r"|from\s+tools\s+import\s+campaign\b)", re.MULTILINE)
 
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "_torch_dist_worker.py"]
+                                         ROOT / "tests" / "_torch_dist_worker.py",
+                                         ROOT / "tools" / "campaign_torch.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -141,8 +145,15 @@ def _cmd_rtk():
         format=None, sample_rate=None, duration=None, base_lla=[51.5, -0.1, 80.0]))
 
 
+def _campaign_trial():
+    from tools.campaign_torch import gps_spec, run_trial
+
+    return run_trial(gps_spec(0))
+
+
 @pytest.mark.parametrize("build", [_build_acquisition, _build_bank, _build_receiver,
-                                   _build_notching_source, _null_jammers, _cmd_rtk])
+                                   _build_notching_source, _null_jammers, _cmd_rtk,
+                                   _campaign_trial])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(build):
     _needs_no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -157,6 +168,14 @@ def test_cli_default_device_raises_without_a_card(tmp_path):
     np.save(capture, np.zeros(2046 * 20, np.complex64))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         main(["replay", "--file", str(capture)])
+
+
+def test_campaign_cli_defaults_to_cuda_and_raises_without_a_card():
+    from tools.campaign_torch import main
+
+    _needs_no_card()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        main(["--trials", "1"])
 
 
 def test_chip_smoke_fails_without_a_card():
