@@ -89,9 +89,10 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    graph); ``deep_acquire_glonass`` on the GLONASS-only scene (its channels
    on the air on the 10 ms FDMA engine's code phases); the 38 s deep-fade
    scene of tests/test_deepcoast.py through the default Receiver with that
-   test's tracking config, unpipelined (as that test runs: its bars) and
-   pipelined (the card's default: held to the JAX receiver's own
-   pipelined fixes, which miss those bars, ``FADE_PIPELINED_REFERENCE``);
+   test's tracking config, unpipelined (as that test runs) and pipelined
+   (the card's default), both held to that test's bars (the JAX receiver's
+   own pipelined fixes, which miss them, ``FADE_PIPELINED_REFERENCE``, are
+   logged beside the port's);
    that receiver checkpointed and reloaded, ``acquire --deep --snapshot``
    on its orbits (held to the JAX CLI's fix, ``SNAPSHOT_REFERENCE``), and
    the 23 s GPS scene replayed with ``--duration 12 --checkpoint``, then
@@ -1978,8 +1979,10 @@ FADE_PRNS = [25, 28, 31, 32, 3]
 # The JAX receiver with pipeline_tracking=True (the card's and the TPU's
 # default; tests/test_deepcoast.py runs unpipelined, on the CPU backend) on
 # the fade scene: its in-fade lsq fix errors (m) by epoch, and the 6 of its
-# 17 protection levels that do not bound them. A fault of the reference,
-# shared by the port (ROADMAP.md §C), checked on the CPU by
+# 17 protection levels that do not bound them. A fault of the reference
+# (its coast anchor one block off, ROADMAP.md §C1), repaired in the port,
+# whose pipelined replay is held to the unpipelined bars; logged beside the
+# port's for the record, and checked on the CPU by
 # tests/test_torch_deepcoast.py::test_pipelined_fade_reference_of_chip_smoke.
 FADE_PIPELINED_REFERENCE = {28.0: 192.14, 29.0: 152.32, 30.0: 129.11, 31.0: 108.19,
                             32.0: 93.86, 33.0: 83.06}
@@ -2260,10 +2263,9 @@ def run_fade_replay(dev, iq: np.ndarray, pipelined: bool):
     and none dropped; >= 4 lsq fixes in [28, 33] s, max error < 50 m, median
     < 25 m; recovery within 3 s of the fade's end, post-fade fixes < 5 m;
     every published protection level bounding its error. Pipelined (the
-    card's default), held to the JAX receiver pipelined: the same measured,
-    dropped and recovered PRNs and post-fade bar, its in-fade errors within
-    1 m of FADE_PIPELINED_REFERENCE and as many protection levels missed.
-    Returns the receiver."""
+    card's default) to the same bars, with the JAX receiver's pipelined
+    fixes (FADE_PIPELINED_REFERENCE, which miss them) logged beside. The
+    snapshot fixes in the fade are logged for both. Returns the receiver."""
     from gypsum_tpu_torch.io.sources import ArraySampleSource
     from gypsum_tpu_torch.runtime.receiver import Receiver
     from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
@@ -2306,24 +2308,26 @@ def run_fade_replay(dev, iq: np.ndarray, pipelined: bool):
         raise AssertionError(f"{name} fade replay: post-fade fix errors {post}")
     in_fade, checked, misses = fade_fix_errors(recv)
     errs = list(in_fade.values())
-    if pipelined:
-        # bf16 phase 1 here against float32 on the CPU: 1 m.
-        if (set(in_fade) != set(FADE_PIPELINED_REFERENCE) or misses != FADE_PIPELINED_PL_MISSES
-                or max(abs(in_fade[t] - e) for t, e in FADE_PIPELINED_REFERENCE.items()) >= 1.0):
-            raise AssertionError(f"pipelined fade replay: in-fade errors {in_fade}, {misses} "
-                                 f"protection levels missed; the JAX receiver "
-                                 f"{FADE_PIPELINED_REFERENCE}, {FADE_PIPELINED_PL_MISSES}")
-    elif (len(errs) < 4 or max(errs) >= 50.0 or float(np.median(errs)) >= 25.0 or misses
+    if (len(errs) < 4 or max(errs) >= 50.0 or float(np.median(errs)) >= 25.0 or misses
             or checked < 10):
-        raise AssertionError(f"fade replay: in-fade lsq fix errors {in_fade}; {misses} of "
-                             f"{checked} protection levels do not bound their errors")
+        raise AssertionError(f"{name} fade replay: in-fade lsq fix errors {in_fade}; {misses} "
+                             f"of {checked} protection levels do not bound their errors")
+    snaps = {round(f.receiver_timestamp, 1): float(np.linalg.norm(f.ecef - rx))
+             for f in recv.world.position_fixes
+             if DEEP_FADE[0] <= f.receiver_timestamp <= DEEP_FADE[1] and f.kind == "snapshot"}
+    jax_piped = ("; the JAX receiver pipelined (its coast anchor one block off, not held): "
+                 + ", ".join(f"{t:.0f} s {e:.2f} m" for t, e in sorted(FADE_PIPELINED_REFERENCE.items()))
+                 + f", {FADE_PIPELINED_PL_MISSES} of 17 protection levels missed"
+                 if pipelined else "")
     ms = 1e3 * np.asarray(meas_s)
     log(f"e2e deep-fade Receiver(device='cuda', {name}), 38 s, PRNs {FADE_PRNS} faded to 0.03 "
         f"over {DEEP_FADE[0]:.0f}-{DEEP_FADE[1]:.0f} s: all {len(measured)} deep-measured, none "
         f"dropped; in-fade lsq fix errors "
         + ", ".join(f"{t:.0f} s {e:.2f} m" for t, e in sorted(in_fade.items()))
-        + f" (max {max(errs):.2f}, median {np.median(errs):.2f}); recovered at "
-        f"{sorted({t for t, _ in recovered})} s; post-fade max {max(post):.2f} m; "
+        + f" (max {max(errs):.2f}, median {np.median(errs):.2f}){jax_piped}; snapshot fixes in "
+        f"the fade " + (", ".join(f"{t:.0f} s {e:.2f} m" for t, e in sorted(snaps.items()))
+                        or "none")
+        + f"; recovered at {sorted({t for t, _ in recovered})} s; post-fade max {max(post):.2f} m; "
         f"{checked - misses} of {checked} protection levels bound their errors; measurer "
         f"{meas.calls} calls, {ms.mean():.2f} ms per call (median {np.median(ms):.2f}, "
         f"{ms.sum():.0f} ms in all, {100 * ms.sum() / (1e3 * wall):.1f} % of the wall); "

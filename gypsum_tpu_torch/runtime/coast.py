@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 
 from gypsum_tpu_torch.nav.bits import BitIntegrator
@@ -87,11 +88,16 @@ class CoastMixin:
         # override puts the peak outside the lag window).
         t_apply = t_end + self.bank.pending_ms * 1e-3
         vals = self._apply_coast_state(obs.prn, pipe, t_apply)
-        if vals is None:  # raced a fix invalidation; fall back to drop
+        # The world model stands at the PROCESSED block's end: its Hatch
+        # anchor is the prediction there, not at t_apply (pipelined, that is
+        # one block of range rate away, ~500 m, which the smoothing depth
+        # only blends out as 1/depth over the whole coast).
+        anchor = self._coast_prediction(obs.prn, pipe, t_end)
+        if vals is None or anchor is None:  # raced a fix invalidation; drop
             pipe.coast_started = None
             pipe.coast_anchor = None
             return False
-        self.world.begin_coast(obs.prn, vals[0])
+        self.world.begin_coast(obs.prn, anchor[0])
         _logger.info(
             "PRN %d signal lost (quality %.2f): coasting open-loop from "
             "predicted geometry", obs.prn, float(obs.quality[-1]),
@@ -248,6 +254,17 @@ class CoastMixin:
         )
         report.coasting_prns.append(prn)
 
+    def _retained_block(self, key: int):
+        """The retained raw IQ of the block starting at ``key`` ms as complex
+        [B, L] (integer planes are dequantized here, once), or None."""
+        raw = self._coast_raw.get(key)
+        if isinstance(raw, tuple):
+            planes, offset = raw
+            b = planes.astype(np.float32) - offset
+            raw = (b[..., 0] + 1j * b[..., 1]).astype(np.complex64)
+            self._coast_raw[key] = raw
+        return raw
+
     def _deep_coast_measurement(
         self,
         obs: ChannelObservation,
@@ -259,7 +276,7 @@ class CoastMixin:
         block's end from the retained raw IQ (track/deepmeas.py). None when
         no raw block was retained (first coasting block), the prediction is
         unavailable, or nothing cleared the detection gate."""
-        raw = self._coast_raw.get(int(round(block_start * 1e3)))
+        raw = self._retained_block(int(round(block_start * 1e3)))
         if raw is None:
             return None
         t_end = block_start + block_ms * 1e-3

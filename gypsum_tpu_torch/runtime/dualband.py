@@ -84,6 +84,11 @@ class DualBandReceiver:
         ]
         if len({r.config.tracking.block_size_ms for r in self._bands}) != 1:
             raise ValueError("all bands must use the same block_size_ms")
+        # Every band writes its PROCESSED block into the shared world model
+        # and the owner fixes at its own processed block's end: a band one
+        # block deeper in flight would feed observables a block older.
+        if len({r._pipeline_depth for r in self._bands}) != 1:
+            raise ValueError("all bands must use the same pipeline_tracking")
 
     def step_block(self) -> BlockReport:
         """One block of every band; the returned report is the fix owner's

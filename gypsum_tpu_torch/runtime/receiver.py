@@ -203,10 +203,11 @@ class Receiver(CoastMixin, BandProcessorsMixin):
         self._readahead_eof = False
         # Deep-integration measurement on coasting channels
         # (track/deepmeas.py): raw IQ of in-flight blocks is retained (host
-        # side, keyed by integer ms of block start) while any channel
-        # coasts, so the collected block can be re-correlated around the
+        # side, keyed by integer ms of block start; complex, or integer
+        # planes with their offset) while any channel coasts or, pipelined,
+        # always, so the collected block can be re-correlated around the
         # coast prediction. The measurer is built lazily on first use.
-        self._coast_raw: dict[int, np.ndarray] = {}
+        self._coast_raw: dict[int, np.ndarray | tuple[np.ndarray, float]] = {}
         # (block key, tensor): the retained block being measured, uploaded
         # once for all of its coasting channels.
         self._coast_raw_dev: tuple[int, torch.Tensor] | None = None
@@ -319,19 +320,19 @@ class Receiver(CoastMixin, BandProcessorsMixin):
 
         # Retain this block's raw IQ (host side) while any channel coasts:
         # the deep-integration measurement (track/deepmeas.py) re-correlates
-        # the COLLECTED block, which in pipelined mode is dispatched one or
-        # more iterations earlier. A channel entering coast therefore gets
-        # its first measurement one block after entry (its entry block was
-        # dispatched before the coast decision); prediction covers that gap.
-        if self.config.tracking.coast_deep_measurement and any(
-            p.coast_started is not None for p in self.pipelines.values()
+        # the COLLECTED block. Pipelined, every block is retained while it is
+        # in flight: a channel that enters coast on the block collected below
+        # is measured on THIS block next, and the coast decision comes after
+        # this dispatch (deciding here would start its measurements one block
+        # later than unpipelined). Integer planes are kept as read and
+        # converted only if measured (runtime/coast.py:_retained_block).
+        if self.config.tracking.coast_deep_measurement and (
+            self._pipeline_depth
+            or any(p.coast_started is not None for p in self.pipelines.values())
         ):
-            if block is None:
-                b = planes.astype(np.float32) - offset
-                blk_c = (b[..., 0] + 1j * b[..., 1]).astype(np.complex64)
-            else:
-                blk_c = block
-            self._coast_raw[int(round(block_start * 1e3))] = blk_c
+            self._coast_raw[int(round(block_start * 1e3))] = (
+                block if block is not None else (planes, offset)
+            )
 
         # --- acquisition scan (reference: gypsum/receiver.py:148-174) over
         # the first 10 ms of this block; tracker state then starts at the

@@ -311,6 +311,7 @@ class _Dispatched(NamedTuple):
     n_ms: int
     start_time: float
     slot_prn: list
+    doppler: object  # the carry's Doppler [S] after this block (not copied)
 
 
 @dataclass
@@ -395,6 +396,8 @@ class TrackerBank:
         # bring it back first (sync_host_state).
         self._device_state: TrackState | None = None
         self._pending: list[_Dispatched] = []  # dispatched-but-uncollected blocks
+        # The carry's Doppler after the last COLLECTED block (maybe_rescue).
+        self._collected_doppler = None
         self._replica_cache: tuple[bytes | None, torch.Tensor | None] = (None, None)
 
     # ----------------------------------------------------------- assignment
@@ -495,7 +498,14 @@ class TrackerBank:
         )
 
         st = self.state
-        st.doppler[slot] += residual_hz
+        # The residual is the signal's offset from the NCO the COLLECTED
+        # block ended on. Pipelined, the carry has since run the in-flight
+        # block, and a marginal loop wanders by several Hz over one: re-centre
+        # from the collected block's NCO (unpipelined it is the carry).
+        base = st.doppler[slot]
+        if self._pending:
+            base = self._collected_doppler[slot].cpu().numpy()
+        st.doppler[slot] = base + residual_hz
         st.ema_err[slot] = 0.0
         st.ema_err_sq[slot] = 0.0
         st.ema_quality[slot] = 0.0
@@ -579,7 +589,8 @@ class TrackerBank:
             ready.record(torch.cuda.current_stream(self.device))
             outs = host
         self._pending.append(
-            _Dispatched(outs, ready, samples.shape[0], block_start_time, list(self.slot_prn))
+            _Dispatched(outs, ready, samples.shape[0], block_start_time, list(self.slot_prn),
+                        new_state.doppler)
         )
 
     @property
@@ -599,6 +610,7 @@ class TrackerBank:
         if not self._pending:
             raise RuntimeError("no dispatched block to collect")
         pend = self._pending.pop(0)
+        self._collected_doppler = pend.doppler
         if pend.ready is not None:
             pend.ready.synchronize()
         # [N_OUT, S, B] host rows, copied out of the transfer buffer so the

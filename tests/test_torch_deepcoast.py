@@ -292,6 +292,146 @@ def test_coast_uploads_a_retained_block_once():
     assert recv._coast_raw_dev is first and recv._coast_measurer.calls == 3
 
 
+# ------------------------------------------- host edits of a pipelined bank
+# Pipelined, the host edits the carry while one block is in flight: each edit
+# is evaluated at the COLLECTED block's end and takes effect when the next
+# dispatch starts, one block later. Each case holds both epochs.
+
+
+def _prediction(prn, pipe, t):
+    """A coast prediction that moves with ``t``: a delay walking 1 us/s and a
+    Doppler 1 Hz/s (any epoch mix-up shows as a different value)."""
+    return (1e-4 + 1e-6 * t) % 1e-3, 100.0 + t
+
+
+@pytest.mark.parametrize("pending_ms", [1000, 0], ids=["pipelined", "unpipelined"])
+def test_coast_entry_anchors_the_world_model_at_the_processed_block(pending_ms):
+    """Coast entry on the block that ends at 24 s: the NCO override is the
+    prediction for the next dispatch's start (24 s + what is in flight), the
+    world model's Hatch anchor the prediction at 24 s, where the world model
+    stands (runtime/coast.py:_enter_coast)."""
+    recv = Receiver(ArraySampleSource(np.zeros(2046 * 20, np.complex64), FS), device="cpu")
+    t_end, begun, overrides = 24.0, [], []
+    recv.world = SimpleNamespace(
+        predicted_range_and_rate=lambda prn, t: (2.0e7, 0.0),
+        position_fixes=[SimpleNamespace(receiver_timestamp=t_end - 1.0)],
+        begin_coast=lambda prn, delay: begun.append((prn, delay)))
+    recv.bank = SimpleNamespace(pending_ms=pending_ms,
+                                coast_override=lambda slot, cp, f: overrides.append((slot, cp, f)))
+    recv._coast_prediction = _prediction
+    pipe = SimpleNamespace(last_good=(22.0, 1e-4, 100.0), glonass=None, sbas=None, slot=3)
+    obs = SimpleNamespace(prn=25, quality=np.array([0.1]))
+    assert recv._enter_coast(obs, pipe, t_end)
+    t_apply = t_end + pending_ms * 1e-3
+    assert begun == [(25, _prediction(25, pipe, t_end)[0])]
+    d, f = _prediction(25, pipe, t_apply)
+    assert overrides == [(3, d * FS, f)]
+    assert pipe.coast_started == t_end and pipe.coast_anchor == (22.0, 1e-4, 100.0)
+
+
+@pytest.mark.parametrize("anchor_s, blocks_off", [(0.0, 0.0), (1.0, 0.5)],
+                         ids=["processed_block_end", "next_dispatch"])
+def test_hatch_anchor_epoch_sets_the_coast_offset(anchor_s, blocks_off):
+    """The world model after begin_coast and one 1000 ms update with the
+    prediction as its measurement (solve/world_measurements.py): anchored at
+    its own epoch it carries no offset; anchored one block later (the slip)
+    it is off by half a block of range rate (depth 2), and the offset decays
+    only as 1/depth over the coast."""
+    from gypsum_tpu_torch.core.config import SolverConfig
+    from gypsum_tpu_torch.solve.world import WorldModel
+
+    doppler = 2724.0
+    rate_s = doppler / GPS_L1_FREQUENCY_HZ  # delay change per second of signal
+
+    def delay(t):
+        return 3e-4 - rate_s * t
+
+    world = WorldModel(SolverConfig())
+    world.begin_coast(25, delay(anchor_s))
+    rec = world._record(25)
+    world._update_carrier_smoothing(rec, delay(1.0), 1000, doppler)
+    off_m = (rec.smoothed_delay_s - delay(1.0)) * 299792458.0
+    assert rec.smoothing_depth == 2
+    assert off_m == pytest.approx(-blocks_off * rate_s * 299792458.0, abs=1e-6)
+
+
+@pytest.mark.parametrize("pipelined", [True, False], ids=["pipelined", "unpipelined"])
+def test_in_flight_block_is_retained_for_a_coast_decided_later(pipelined):
+    """Pipelined, a channel that enters coast on the collected block is deep
+    measured on the block in flight, dispatched before that decision: every
+    in-flight block is retained (runtime/receiver.py:step_block), so the
+    first measurement comes on the same block as unpipelined. Unpipelined,
+    nothing is retained while no channel coasts."""
+    iq = np.zeros(2046 * 400, np.complex64)
+    cfg = ReceiverConfig(tracking=TrackingConfig(block_size_ms=100, pipeline_tracking=pipelined,
+                                                 matmul_tracker_bf16=False))
+    recv = Receiver(ArraySampleSource(iq, FS), cfg, device="cpu")
+    recv.step_block()
+    recv.step_block()
+    assert sorted(recv._coast_raw) == ([100] if pipelined else [])
+    if pipelined:
+        assert recv._coast_raw[100] is not None and recv._retained_block(100).shape == (100, L)
+
+
+def test_retained_integer_planes_convert_when_measured():
+    """Integer planes are retained as read and dequantized once, when a
+    coasting channel measures them (runtime/coast.py:_retained_block)."""
+    recv = Receiver(ArraySampleSource(np.zeros(2046 * 20, np.complex64), FS), device="cpu")
+    planes = np.random.default_rng(2).integers(0, 256, (3, L, 2), dtype=np.uint8)
+    recv._coast_raw[7] = (planes, 127.5)
+    got = recv._retained_block(7)
+    want = (planes[..., 0] - 127.5) + 1j * (planes[..., 1] - 127.5)
+    assert got.dtype == np.complex64 and np.array_equal(got, want.astype(np.complex64))
+    assert recv._retained_block(7) is got and recv._retained_block(8) is None
+
+
+def test_pipelined_rescue_lands_where_unpipelined_does():
+    """A marginal channel's rescue (track/loop.py:maybe_rescue) measures its
+    Doppler residual on the collected block. Pipelined, the carry has run one
+    more block on its own loop by then: the new Doppler must be the collected
+    block's NCO plus the residual, as unpipelined, not the wandered carry's."""
+    from gypsum_tpu_torch.track.loop import TrackerBank
+
+    cfg = TrackingConfig(matmul_tracker_bf16=False, quality_window_ms=100)
+    rng = np.random.default_rng(5)
+    blocks = [((rng.standard_normal((200, L)) + 1j * rng.standard_normal((200, L))) * 0.35
+               ).astype(np.complex64) for _ in range(2)]
+    res_hz, t_ms = 7.0, 1e-3
+    n = np.arange(250)
+    marginal = SimpleNamespace(slot=0, lost=False, quality=np.array([0.3]),
+                               prompts=np.exp(2j * np.pi * res_hz * n * t_ms).astype(np.complex64))
+    banks = []
+    for pipelined in (True, False):
+        bank = TrackerBank(FS, L, cfg, n_channels=1, device="cpu")
+        bank.assign(prn=25, doppler_hz=1500.0, code_phase_samples=100.0, carrier_phase_rad=0.0)
+        bank.dispatch_block(blocks[0], 0.0)
+        if pipelined:
+            bank.dispatch_block(blocks[1], 0.2)
+        bank.collect_block()
+        bank.sync_host_state()
+        carry = float(bank.state.doppler[0])
+        assert bank.maybe_rescue(marginal, 0.2)
+        banks.append((carry, float(bank.state.doppler[0])))
+    (piped_carry, piped), (collected, unpiped) = banks
+    assert abs(piped_carry - collected) > 0.01  # the loop wandered over the in-flight block
+    assert unpiped == pytest.approx(collected + res_hz, abs=1e-3)
+    assert piped == unpiped
+
+
+def test_dual_band_refuses_mixed_pipelining():
+    """Every band writes its processed block into the shared world model:
+    one band a block deeper in flight would feed it observables a block
+    older than the owner's fix epoch (runtime/dualband.py)."""
+    from gypsum_tpu_torch.runtime.dualband import DualBandReceiver
+
+    src = ArraySampleSource(np.zeros(2046 * 20, np.complex64), FS)
+    glo = ArraySampleSource(np.zeros(4092 * 20, np.complex64), 4.092e6)
+    cfg = ReceiverConfig(tracking=TrackingConfig(pipeline_tracking=True))
+    with pytest.raises(ValueError, match="pipeline_tracking"):
+        DualBandReceiver(gps_source=src, glonass_source=glo, config=cfg,
+                         glonass_config=ReceiverConfig(), device="cpu")
+
+
 def test_fade_snapshot_reference_of_chip_smoke(fade_runs):
     """chip_smoke.py's snapshot phase, its reference: what the JAX CLI's
     ``acquire --deep --snapshot`` (gypsum_tpu/cli/acquire.py:9-141, the
