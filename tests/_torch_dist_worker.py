@@ -24,7 +24,6 @@ killing every rank still running at the time limit.
 from __future__ import annotations
 
 import datetime
-import os
 import pickle
 import subprocess
 import sys
@@ -73,12 +72,12 @@ class Launch:
 
 def launch(task: str, world: int, directory: Path, threads: int | None = None,
            timeout_s: float = 120.0) -> Launch:
-    """Start ``world`` ranks of ``task`` in ``directory``, each with its
-    share of the CPU's threads."""
-    threads = threads or max(1, (os.cpu_count() or 2) // world)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT)
-    env["GLOO_SOCKET_IFNAME"] = "lo"  # the ranks talk over the loopback only
+    """Start ``world`` ranks of ``task`` in ``directory``, each with the
+    port tests' thread budget (tests/_torch_cpu.py)."""
+    from tests._torch_cpu import THREADS, subprocess_env
+
+    threads = threads or THREADS
+    env = subprocess_env(GLOO_SOCKET_IFNAME="lo")  # the ranks talk over the loopback only
     procs = [
         subprocess.Popen(
             [sys.executable, str(Path(__file__)), task, str(rank), str(world),

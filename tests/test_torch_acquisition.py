@@ -16,6 +16,8 @@ within 2 Hz, strength within 5 % of max(1, strength). Noise rows hold only
 their detection decision where the peaks are near-ties (ROADMAP.md §C).
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import dataclasses
 
 import numpy as np

@@ -10,6 +10,8 @@ it measures ~4e-7) and the suppression within 1e-3 dB. Array captures are
 numpy in both and bit-identical.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

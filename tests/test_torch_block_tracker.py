@@ -8,6 +8,8 @@ another order, and the pull-in integrates the difference);
 locked/lost/step_count exact.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -16,6 +16,8 @@ drives, against the JAX package.
 
 from __future__ import annotations
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import copy
 import dataclasses
 import json

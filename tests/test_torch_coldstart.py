@@ -9,6 +9,8 @@ needs them to succeed, and ``kernels._nvcc`` raises where a test needs to
 show that nothing compiles.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import dataclasses
 import os
 import sys

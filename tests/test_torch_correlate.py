@@ -6,6 +6,8 @@ profiles agree to a relative 1e-4 of each profile's maximum; the wipeoff
 phasors are built by the same float32 operations and agree to a few ulp.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

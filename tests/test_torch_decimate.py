@@ -9,6 +9,8 @@ rtol 1e-3 / atol 1e-4 for rational ratios (that file's bar for them: the
 filter's gain is ``up``, so the terms are larger).
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

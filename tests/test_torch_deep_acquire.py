@@ -14,6 +14,8 @@ held bit-equal. Configurations are cut (a few PRNs or channels, spans of
 0.5-4 kHz, 100-400 ms) so the file stays well under a minute.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import dataclasses
 import re
 

@@ -13,6 +13,8 @@ bars (the last fix within 5 m on 4 + 3 satellites, the bias within 250 ns
 of the injected -800 ns). Both run phase 1 in float32.
 """
 
+from tests._torch_cpu import concurrently  # isort: skip (first: caps torch's threads)
+
 import dataclasses
 
 import numpy as np
@@ -47,17 +49,19 @@ def _f32(config_cls):
 
 @pytest.fixture(scope="module")
 def both_receivers():
-    gps_iq, _ = synthesize_constellation(
-        demo_constellation(GPS_PRNS), RX, START_SOW, 24.0, GPS_FS, noise_sigma=0.3)
-    glo_iq, _ = synthesize_constellation(
-        demo_glonass_constellation([-2, 0, 2]), RX, START_SOW, 24.0, GLO_FS,
-        noise_sigma=0.25, glonass_time_offset_s=GLO_OFFSET_S)
+    """The two bands synthesized at once, then the port's receiver on this
+    thread while the JAX receiver runs on another."""
+    (gps_iq, _), (glo_iq, _) = concurrently(
+        lambda: synthesize_constellation(
+            demo_constellation(GPS_PRNS), RX, START_SOW, 24.0, GPS_FS, noise_sigma=0.3),
+        lambda: synthesize_constellation(
+            demo_glonass_constellation([-2, 0, 2]), RX, START_SOW, 24.0, GLO_FS,
+            noise_sigma=0.25, glonass_time_offset_s=GLO_OFFSET_S))
     ref = JaxDualBandReceiver(JaxArraySource(gps_iq, GPS_FS), JaxArraySource(glo_iq, GLO_FS),
                               _f32(JaxReceiverConfig))
-    ref.run()
     port = DualBandReceiver(ArraySampleSource(gps_iq, GPS_FS), ArraySampleSource(glo_iq, GLO_FS),
                             _f32(ReceiverConfig), device="cpu")
-    port.run()
+    concurrently(port.run, ref.run)
     return ref, port
 
 

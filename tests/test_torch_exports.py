@@ -26,6 +26,8 @@ obs/rinex.py, obs/nmea.py, replay's --rinex-obs/--rinex-nav/--nmea-out and
 
 from __future__ import annotations
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import contextlib
 import io
 import re

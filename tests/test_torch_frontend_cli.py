@@ -10,6 +10,8 @@ within 0.02 (the printed digits, one unit of slack), as
 tests/test_torch_deep_acquire.py does.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import logging
 import re
 

@@ -3,7 +3,7 @@
 The same seeded inputs go through the JAX function and its counterpart in
 ``gypsum_tpu_torch`` (``device="cpu"``: every kernel wrapper runs its plain
 version); the JAX Pallas kernels run in interpret mode, as
-tests/test_pallas_kernels.py runs them. Both receivers run phase 1 in
+tests/test_pallas_kernels.py runs them. Both trackers run phase 1 in
 float32 (``matmul_tracker_bf16=False``), as tests/test_torch_receiver.py
 does.
 
@@ -23,18 +23,15 @@ does.
   float32 terms in another order, integrated by the loop); pseudosymbols,
   lock and loss exact. K4's plain version against the Pallas kernel at MHz
   wipe frequencies within 1e-4 of the correlation scale.
-- The slice: the GLONASS-only scene of tests/test_glonass_receiver.py and
-  the L2OF scene of tests/test_dualfreq.py through both receivers, held to
-  the parity ladder of tests/test_multichip_receiver.py (GLONASS strings in
-  place of subframes), and the port's CLI to a fix.
+
+The slice, both receivers on whole scenes, is in
+tests/test_torch_glonass_receiver.py (L1OF, and the port's CLI) and
+tests/test_torch_glonass_l2.py (L2OF).
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import dataclasses
-import os
-import re
-import subprocess
-import sys
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,27 +40,18 @@ import torch
 
 from gypsum_tpu.acquire.engine import AcquisitionEngine as JaxEngine
 from gypsum_tpu.core.config import AcquisitionConfig as JaxAcqConfig
-from gypsum_tpu.core.config import ReceiverConfig as JaxReceiverConfig
 from gypsum_tpu.core.config import TrackingConfig as JaxTrackingConfig
-from gypsum_tpu.io.sources import ArraySampleSource as JaxArraySource
 from gypsum_tpu.nav import glonass as jnav
 from gypsum_tpu.ops.pallas_kernels import wipeoff_lag_correlate_pallas
-from gypsum_tpu.runtime.receiver import Receiver as JaxReceiver
 from gypsum_tpu.signal import constellation as jcon
 from gypsum_tpu.signal import scenarios as jscn
 from gypsum_tpu.solve import glonass as jsol
 from gypsum_tpu.track.loop import TrackerBank as JaxBank
 from gypsum_tpu_torch.acquire.engine import AcquisitionEngine
-from gypsum_tpu_torch.core.config import AcquisitionConfig, ReceiverConfig, TrackingConfig
-from gypsum_tpu_torch.core.constants import (
-    GLONASS_L1_BASE_HZ,
-    GLONASS_L1_CHANNEL_SPACING_HZ,
-    GLONASS_L2_CHANNEL_SPACING_HZ,
-)
-from gypsum_tpu_torch.io.sources import ArraySampleSource
+from gypsum_tpu_torch.core.config import AcquisitionConfig, TrackingConfig
+from gypsum_tpu_torch.core.constants import GLONASS_L1_BASE_HZ, GLONASS_L1_CHANNEL_SPACING_HZ
 from gypsum_tpu_torch.nav import glonass as tnav
 from gypsum_tpu_torch.ops.wipeoff_lag import wipeoff_lag_reference
-from gypsum_tpu_torch.runtime.receiver import Receiver
 from gypsum_tpu_torch.signal import constellation as tcon
 from gypsum_tpu_torch.signal import scenarios as tscn
 from gypsum_tpu_torch.signal.prn import GLONASS_PRN_IDS, glonass_frequency_number
@@ -71,7 +59,6 @@ from gypsum_tpu_torch.solve import glonass as tsol
 from gypsum_tpu_torch.track.loop import TrackerBank
 from gypsum_tpu_torch.track.matmul import lag_window_size
 
-ROOT = Path(__file__).resolve().parent.parent
 FS, L = 4.092e6, 4092
 START_SOW = 21618.0  # a GLONASS frame boundary at t = 0 (tests/test_glonass_receiver.py)
 GLO_OFFSET_S = 8e-7
@@ -79,13 +66,6 @@ KS = [-2, -1, 0, 1, 2]
 PRNS = [208 + k for k in KS]
 RX = jscn.demo_receiver_ecef()
 OFFSETS = tuple(glonass_frequency_number(p) * GLONASS_L1_CHANNEL_SPACING_HZ for p in GLONASS_PRN_IDS)
-
-
-def _f32(config_cls, **tracking):
-    """A ReceiverConfig of either package with phase 1 in float32."""
-    cfg = config_cls()
-    return cfg.replace(tracking=dataclasses.replace(
-        cfg.tracking, matmul_tracker_bf16=False, **tracking))
 
 
 # ------------------------------------------------------------------ units
@@ -336,158 +316,3 @@ def test_block_kernel_refuses_offsets_as_jax_does():
         with pytest.raises(ValueError, match="FDMA"):
             bank.assign(prn=GLONASS_PRN_IDS[0], doppler_hz=0.0, code_phase_samples=0.0,
                         carrier_phase_rad=0.0, carrier_offset_hz=562.5e3)
-
-
-# ------------------------------------------------------- the slice, L1OF
-
-
-@pytest.fixture(scope="module")
-def scene():
-    """The GLONASS-only scene of tests/test_glonass_receiver.py:26-48."""
-    iq, _ = jcon.synthesize_constellation(
-        jscn.demo_glonass_constellation(KS), RX, START_SOW, 13.0, FS, noise_sigma=0.25,
-        glonass_time_offset_s=GLO_OFFSET_S)
-    return iq
-
-
-@pytest.fixture(scope="module")
-def both_receivers(scene):
-    ref = JaxReceiver(JaxArraySource(scene, FS), _f32(JaxReceiverConfig), band="glonass")
-    ref.run()
-    port = Receiver(ArraySampleSource(scene, FS), _f32(ReceiverConfig), band="glonass",
-                    device="cpu")
-    port.run()
-    return ref, port
-
-
-def _signs_by_prn(recvs):
-    out: dict[int, list[np.ndarray]] = {}
-    for recv in recvs:
-        for report in recv.block_reports:
-            for obs in report.observations:
-                out.setdefault(obs.prn, []).append(np.asarray(obs.pseudosymbol_signs))
-    return {p: np.concatenate(v) for p, v in out.items()}
-
-
-def _strings(recvs):
-    return [(prn, ev.string.m, ev.string.fields, ev.trailing_edge_receiver_timestamp)
-            for recv in recvs for report in recv.block_reports
-            for prn, ev in report.glonass_strings]
-
-
-def _acquisitions(recv):
-    return [(h.prn, h.code_phase_samples) for r in recv.block_reports for h in r.newly_acquired]
-
-
-def test_acquisition_parity(both_receivers):
-    ref, port = both_receivers
-    assert _acquisitions(port) == _acquisitions(ref)
-    assert {p for p, _ in _acquisitions(port)} == set(PRNS)
-    for a, b in zip(port.block_reports[0].newly_acquired, ref.block_reports[0].newly_acquired):
-        assert abs(a.doppler_hz - b.doppler_hz) < 0.5
-
-
-def test_pseudosymbol_stream_parity(both_receivers):
-    ref, port = both_receivers
-    a, b = _signs_by_prn([ref]), _signs_by_prn([port])
-    assert set(a) == set(b)
-    for prn in PRNS:
-        assert a[prn].shape == b[prn].shape
-        agree = float(np.mean(a[prn] == b[prn]))
-        assert agree > 0.999, f"k={prn - 208}: sign agreement {agree:.4%}"
-
-
-def test_string_stream_parity(both_receivers):
-    ref, port = both_receivers
-    a, b = _strings([ref]), _strings([port])
-    assert len(b) >= 4 * len(PRNS)
-    assert [x[:3] for x in b] == [x[:3] for x in a]
-    # The edges are code-phase-corrected receiver times: 10 ns is 0.04 of
-    # a sample, well above the float32 code phases' difference.
-    np.testing.assert_allclose([x[3] for x in b], [x[3] for x in a], rtol=0, atol=1e-8)
-
-
-def test_fix_parity_and_the_jax_bars(both_receivers):
-    ref, port = both_receivers
-    fa, fb = ref.world.position_fixes, port.world.position_fixes
-    assert fa and len(fa) == len(fb)
-    for sa, sb in zip(fa, fb):
-        assert sa.receiver_timestamp == sb.receiver_timestamp
-        assert sorted(sa.satellites_used) == sorted(sb.satellites_used)
-        assert np.linalg.norm(sa.ecef - sb.ecef) < 1.0
-    # tests/test_glonass_receiver.py's own bars.
-    assert fb[0].receiver_timestamp <= 11.0
-    for fix in fb:
-        assert np.linalg.norm(fix.ecef - RX) < 15.0
-        assert len(fix.satellites_used) >= 4
-        assert all(201 <= p <= 214 for p in fix.satellites_used)
-    assert np.linalg.norm(fb[-1].ecef - RX) < 5.0
-    assert np.linalg.norm(fb[-1].velocity_ecef_mps) < 0.5
-
-
-def test_glonass_band_rejects_what_jax_rejects():
-    iq = np.zeros(int(FS * 0.01), dtype=np.complex64)
-    with pytest.raises(ValueError, match="201"):
-        Receiver(ArraySampleSource(iq, FS), eligible_prns=[25], band="glonass", device="cpu")
-    with pytest.raises(ValueError, match="band"):
-        Receiver(ArraySampleSource(iq, FS), band="galileo", device="cpu")
-
-
-def test_cli_glonass_replay_prints_a_fix(scene, tmp_path):
-    capture = tmp_path / "glonass.npy"
-    np.save(capture, scene)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT)
-    proc = subprocess.run(
-        [sys.executable, "-m", "gypsum_tpu_torch", "--device", "cpu", "replay",
-         "--glonass-file", str(capture), "--until-fix"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    fixes = re.findall(r"FIX lat=(-?[\d.]+) lon=(-?[\d.]+) alt=(-?\d+)m", proc.stdout)
-    assert fixes, proc.stdout[-2000:]
-    from gypsum_tpu_torch.solve.geodesy import lla_to_ecef
-
-    lat, lon, alt = (float(v) for v in fixes[-1])
-    assert np.linalg.norm(lla_to_ecef(lat, lon, alt) - RX) < 15.0
-    assert "GLONASS k=+0 string 1" in proc.stdout
-
-
-# ------------------------------------------------------- the slice, L2OF
-
-
-@pytest.fixture(scope="module")
-def l2_receivers():
-    """The L2OF scene of tests/test_dualfreq.py:109-137 through both
-    measurement-only band receivers."""
-    iq, _ = jcon.synthesize_constellation(
-        jscn.demo_glonass_constellation(KS), RX, START_SOW, 3.0, FS, noise_sigma=0.25,
-        glonass_band="l2")
-    ref = JaxReceiver(JaxArraySource(iq, FS), _f32(JaxReceiverConfig), band="glonass_l2",
-                      attempt_fixes=False)
-    ref.run()
-    port = Receiver(ArraySampleSource(iq, FS), _f32(ReceiverConfig), band="glonass_l2",
-                    attempt_fixes=False, device="cpu")
-    port.run()
-    return ref, port
-
-
-def test_l2_band_acquisitions_match_jax(l2_receivers):
-    ref, port = l2_receivers
-    assert _acquisitions(port) == _acquisitions(ref)
-    assert {p for p, _ in _acquisitions(port)} >= set(PRNS)
-    spacing = GLONASS_L2_CHANNEL_SPACING_HZ
-    for h in port.block_reports[0].newly_acquired:
-        assert abs(h.doppler_hz - glonass_frequency_number(h.prn) * spacing) < 7000.0
-
-
-def test_l2_band_delays_match_jax(l2_receivers):
-    ref, port = l2_receivers
-    for prn in PRNS:
-        a, b = port.world._sats[prn], ref.world._sats[prn]
-        assert a.l2_delay_s is not None and a.l2_smoothing_depth == b.l2_smoothing_depth >= 2
-        assert a.l2_delay_s == pytest.approx(b.l2_delay_s, abs=1e-9)
-        assert a.l2_carrier_hz == b.l2_carrier_hz
-        assert a.tow_at_last_subframe is None  # measurement only: no decode
-    assert not any(r.glonass_strings for r in port.block_reports)
-    assert _signs_by_prn([port]).keys() == _signs_by_prn([ref]).keys()

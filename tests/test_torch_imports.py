@@ -1,12 +1,13 @@
 """The port (gypsum_tpu_torch), chip_smoke.py and the port's rank worker
-(tests/_torch_dist_worker.py, a source scan) stand alone: no JAX, nothing
+(tests/_torch_dist_worker.py and tests/_torch_cpu.py, a source scan) stand alone: no JAX, nothing
 of the JAX package, and no quiet fall back to the CPU when CUDA is asked for.
 
 The import check runs in a subprocess: tests/conftest.py imports JAX into
 this test process.
 """
 
-import os
+from tests._torch_cpu import subprocess_env  # isort: skip (first: caps torch's threads)
+
 import re
 import subprocess
 import sys
@@ -37,12 +38,6 @@ print(len(names), bad)
 """
 
 
-def _port_env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT)
-    return env
-
-
 def test_port_and_chip_smoke_import_no_jax(tmp_path):
     """Every module of the port and chip_smoke.py import, and a checkpoint
     written by the JAX package loads, without JAX or the JAX package."""
@@ -54,7 +49,7 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path):
     jax_save_checkpoint(JaxReceiver(JaxArraySource(np.zeros(2046 * 20, np.complex64), 2.046e6)),
                         ckpt)
     proc = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL, str(ckpt)], cwd=ROOT, env=_port_env(),
+        [sys.executable, "-c", _IMPORT_ALL, str(ckpt)], cwd=ROOT, env=subprocess_env(),
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
@@ -71,6 +66,7 @@ _FORBIDDEN = re.compile(r"^\s*(?:(?:from|import)\s+(?:jax|jaxlib|gypsum_tpu|tool
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tests" / "_torch_dist_worker.py",
+                                         ROOT / "tests" / "_torch_cpu.py",
                                          ROOT / "tools" / "campaign_torch.py"]
 
 
@@ -181,7 +177,7 @@ def test_campaign_cli_defaults_to_cuda_and_raises_without_a_card():
 def test_chip_smoke_fails_without_a_card():
     _needs_no_card()
     proc = subprocess.run(
-        [sys.executable, "chip_smoke.py"], cwd=ROOT, env=_port_env(),
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, env=subprocess_env(),
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode != 0

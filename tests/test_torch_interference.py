@@ -12,6 +12,8 @@ Tolerances, and why:
 - a block with nothing to excise comes back bit-identical.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import dataclasses
 
 import numpy as np

@@ -6,6 +6,8 @@ tests/test_io.py:72-105; the prefetch across sequential reads, a peek and a
 moved cursor; the build's place; and a failing build raising.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

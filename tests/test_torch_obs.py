@@ -9,6 +9,8 @@ equal payloads. The bars are tests/test_obs.py's, on the port's modules,
 and each package's client must work against the other package's server.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import base64
 import io
 import json

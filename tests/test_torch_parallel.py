@@ -12,6 +12,8 @@ which one rank raises before its first collective, must fail within its
 time limit rather than hang.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import pickle
 
 import jax

@@ -5,6 +5,8 @@ Max and argmax are exact (ties to the lowest index); the sum agrees to
 rtol 1e-6 (float32 sums of a few thousand terms in another order).
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,8 +15,9 @@ Every receiver runs phase 1 in float32 (matmul_tracker_bf16=False): the
 comparison is of the algorithm, not of bf16 rounding.
 """
 
+from tests._torch_cpu import concurrently, subprocess_env  # isort: skip (first: caps torch's threads)
+
 import dataclasses
-import os
 import pickle
 import re
 import subprocess
@@ -65,7 +66,7 @@ def mesh_ranks(scene, tmp_path_factory):
     replays the scene through both single-device receivers."""
     directory = tmp_path_factory.mktemp("mesh_receiver")
     np.save(directory / "scene.npy", scene[1])
-    ranks = launch("receiver", 2, directory, threads=2)
+    ranks = launch("receiver", 2, directory)
     yield ranks
     ranks.close()
 
@@ -84,11 +85,10 @@ def both_receivers(scene, mesh_ranks):
     jcfg = JaxReceiverConfig()
     jcfg = jcfg.replace(tracking=dataclasses.replace(jcfg.tracking, matmul_tracker_bf16=False))
     ref = JaxReceiver(JaxArraySource(iq, FS), jcfg)
-    ref.run()
     cfg = ReceiverConfig()
     cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, matmul_tracker_bf16=False))
     port = Receiver(ArraySampleSource(iq, FS), cfg, device="cpu")
-    port.run()
+    concurrently(port.run, ref.run)  # the JAX receiver on a second thread
     return rx, ref, port
 
 
@@ -181,12 +181,10 @@ def test_cli_replay_prints_a_fix(scene, tmp_path):
     rx, iq = scene
     capture = tmp_path / "scene.npy"
     np.save(capture, iq)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT)
     proc = subprocess.run(
         [sys.executable, "-m", "gypsum_tpu_torch", "--device", "cpu", "replay",
          "--file", str(capture), "--until-fix"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+        cwd=ROOT, env=subprocess_env(), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     fixes = re.findall(r"FIX lat=(-?[\d.]+) lon=(-?[\d.]+) alt=(-?\d+)m", proc.stdout)

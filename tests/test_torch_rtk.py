@@ -41,6 +41,8 @@ solve/attitude.py and the receivers that feed them.
 
 from __future__ import annotations
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import dataclasses
 import itertools
 

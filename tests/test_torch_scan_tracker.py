@@ -11,6 +11,8 @@ kernel in interpret mode at 1e-4 of the correlation scale (same float32
 phase arithmetic on both sides, another sum order).
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

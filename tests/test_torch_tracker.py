@@ -7,6 +7,8 @@ scale (the phase-1 sums of 2046 float32 terms run in another order, and a
 48 ms pull-in integrates the difference); locked/lost/step_count exact.
 """
 
+import tests._torch_cpu  # noqa: F401  # isort: skip (first: caps torch's threads)
+
 import dataclasses
 
 import jax.numpy as jnp
