@@ -166,7 +166,7 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    --duration 3 --profile-dir``, its trace parsed, its CUDA kernel events
    and K1's counted;
 13. the campaign (``run_campaign``, tools/campaign_torch.py): the scenes
-   of six JAX receiver tests synthesized in the scene pool and replayed
+   of eight JAX receiver tests synthesized in the scene pool and replayed
    through the port in the card's default pipelined mode, each held to its
    test's asserts and to the JAX receiver's pipelined record in
    tools/campaign_reference.jsonl (made on the CPU by
@@ -182,10 +182,18 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    meacon from 12 s with no alert before and vestigial alerts on >= 3 PRNs
    after (tests/test_spoofing.py:105-150), and TDCP velocity within
    0.02 m/s with the Doppler fallback within 1.5 m/s
-   (tests/test_tdcp.py:60-100); then campaign seeds 0, 1, 11, 17 and seed 0
-   under a CW jammer through the notch, each at its record's status and
-   satellite sets and within 15 m; K1's launches counted at 200 and 500 ms
-   blocks;
+   (tests/test_tdcp.py:60-100), a GPS satellite blocked for 6 s coasting
+   (never dropped, acquired once, out of the fixes while it coasts, within
+   30 m) and recovering in place (tests/test_coast.py:28-98,147-161), the
+   same on a GLONASS FDMA channel (tests/test_coast.py:100-145; K1 at the
+   L1OF shape), and two of five satellites gone at 22 s with the navigation
+   EKF's fixes carrying on within 50 m (tests/test_ekf.py:188-227); then
+   campaign seeds 0, 1, 11, 17 and seed 0 under a CW jammer through the
+   notch, each at its record's status and satellite sets and within 15 m;
+   K1's launches counted by the row of their shape (K1 B=200 and B=500;
+   ``campaign_launches`` beside K1's and K1 G's own). The scan tracker's
+   pipeline_nav scene (tests/test_pipeline.py:27-69) runs only in
+   ``--campaign-only``: its replays are host-bound on the card;
 14. the cold chain (``run_cold_chain``): the port and this script copied
    into a temporary directory as a fresh checkout has them (no build/, no
    bytecode), and ``python -m gypsum_tpu_torch replay --file <23 s GPS .npy>
@@ -3392,8 +3400,14 @@ CAMPAIGN_REFERENCE = ROOT / "tools" / "campaign_reference.jsonl"
 # notch front end. ``--campaign-only`` runs the whole recorded set.
 CAMPAIGN_TRIALS = [("gps", 0, "none"), ("gps", 1, "none"), ("gps", 11, "none"),
                    ("gps", 17, "none"), ("gps", 0, "cw")]
+# The scene runs of the full run: every one but pipeline_nav, whose scan
+# tracker is host-bound on the card (~40 s a 23 s replay, PERF.md section 5)
+# and runs in ``--campaign-only``.
+CAMPAIGN_SKIPPED_SCENES = ("pipeline_nav",)
 CAMPAIGN_CAPTURES = ["campaign_sbas_ranging", "campaign_fast_corrections", "campaign_rescue",
                      "campaign_outage_reseed", "campaign_meaconing", "campaign_tdcp",
+                     "campaign_coast_obstruction", "campaign_coast_glonass",
+                     "campaign_ekf_outage",
                      *(f"campaign_gps{s}" + ("" if imp == "none" else f"_{imp}")
                        for _, s, imp in CAMPAIGN_TRIALS)]
 
@@ -3410,11 +3424,12 @@ def campaign_spec(capture: str) -> dict:
 
 
 def campaign_runs() -> list[tuple[dict, str]]:
-    """(spec, capture) of the full run's campaign phase: the nine scene runs
+    """(spec, capture) of the full run's campaign phase: twelve scene runs
     (pairs share a capture) and the five trials."""
     from tools import campaign_torch as twin
 
-    runs = [(twin.scene_spec(s), f"campaign_{twin.capture_of(s)}") for s in twin.SCENES]
+    runs = [(twin.scene_spec(s), f"campaign_{twin.capture_of(s)}") for s in twin.SCENES
+            if s not in CAMPAIGN_SKIPPED_SCENES]
     return runs + [(campaign_spec(c), c) for c in CAMPAIGN_CAPTURES if c.startswith("campaign_gps")]
 
 
@@ -3424,7 +3439,19 @@ def campaign_block_ms(spec: dict) -> int:
 
     if spec["kind"] == "gps":
         return twin.make_scenario(spec["seed"]).block_size_ms
-    return twin.RESCUE_BLOCK_MS if spec.get("scene", "").startswith("rescue") else 1000
+    if spec.get("scene", "").startswith("rescue"):
+        return twin.RESCUE_BLOCK_MS
+    return 500 if spec.get("scene") == "pipeline_nav" else 1000
+
+
+def campaign_k1_row(spec: dict) -> str:
+    """The ``kernels`` row of the shape a campaign run launches K1 at: K1
+    (GPS, 1000 ms), K1G (the GLONASS coast, L1OF's [1000, 12, 43]) or the
+    K1 B rows."""
+    if spec.get("scene") == "coast_glonass":
+        return "K1G"
+    block_ms = campaign_block_ms(spec)
+    return "K1" if block_ms == 1000 else f"K1B{block_ms}"
 
 
 def hold_campaign_record(rec: dict, reference: list[dict], gate: bool = True) -> dict:
@@ -3451,11 +3478,14 @@ def hold_campaign_record(rec: dict, reference: list[dict], gate: bool = True) ->
     return twin.differences(rec, ref)
 
 
-def run_campaign(dev, scenes: "Scenes", k1b: dict) -> None:
-    """The six scenes of the JAX receiver tests (nine runs) and five
+def run_campaign(dev, scenes: "Scenes", rows: dict) -> None:
+    """The scenes of eight JAX receiver tests (twelve runs) and five
     campaign trials through the port on the card in its default pipelined
     mode, each held to its test's bars and to its pipelined JAX record
-    (``hold_campaign_record``); K1's launches counted per block length."""
+    (``hold_campaign_record``). K1's launches are counted by the ``kernels``
+    row of their shape (``campaign_k1_row``): a K1 B row's ``launches`` are
+    these; the K1 and K1G rows, whose ``launches`` are their main paths',
+    get ``campaign_launches`` beside them."""
     from tools import campaign_torch as twin
 
     t_phase = time.perf_counter()
@@ -3476,12 +3506,18 @@ def run_campaign(dev, scenes: "Scenes", k1b: dict) -> None:
             raise AssertionError(f"campaign {twin.spec_label(spec)} ran unpipelined")
         if n["K1"] == 0:
             raise AssertionError(f"campaign {twin.spec_label(spec)} never launched K1: {n}")
-        if f"B{block_ms}" in k1b:
-            k1b[f"B{block_ms}"].setdefault("launches_by_run", {})[twin.spec_label(spec)] = n["K1"]
-            k1b[f"B{block_ms}"]["launches"] = k1b[f"B{block_ms}"].get("launches", 0) + n["K1"]
+        row = campaign_k1_row(spec)
+        entry = rows[row]
+        if row.startswith("K1B"):
+            entry.setdefault("launches_by_run", {})[twin.spec_label(spec)] = n["K1"]
+            entry["launches"] = entry.get("launches", 0) + n["K1"]
+        else:
+            entry.setdefault("campaign_launches_by_run", {})[twin.spec_label(spec)] = n["K1"]
+            entry["campaign_launches"] = entry.get("campaign_launches", 0) + n["K1"]
         d = hold_campaign_record(rec, reference)
         records.append(rec)
-        log(f"campaign {twin.summary_line(rec)}; K1 {n['K1']} launches at B = {block_ms}; "
+        log(f"campaign {twin.summary_line(rec)}; K1 {n['K1']} launches at B = {block_ms} "
+            f"({row}'s shape); "
             f"against the pipelined JAX record: status and satellite sets equal, first fix "
             f"epoch {d['first_fix_epoch_diff_s']} s apart (ladder's bar 0), fix epochs equal "
             f"{d['fix_epochs_equal']}, positions up to {d['max_position_diff_m']} m apart "
@@ -3509,13 +3545,13 @@ def run_campaign_set(dev, k1b: dict) -> None:
     modes = [r["pipelined"] for r in reference]
     records, failures = [], []
     jobs = max(1, (os.cpu_count() or 2) - 2)
-    by_length = Counter()
+    by_row = Counter()
     reset_launches()
     for rec in twin.run_specs(specs, str(dev), jobs, modes=modes):
         # Counted from the last record's replay to this one's: only the
         # replays launch (the workers synthesize on the host).
         rec["k1_launches"] = launches()["K1"]
-        by_length[campaign_block_ms(rec)] += rec["k1_launches"]
+        by_row[campaign_k1_row(rec)] += rec["k1_launches"]
         reset_launches()
         rec["phase1"] = "bf16"
         records.append(rec)
@@ -3527,7 +3563,7 @@ def run_campaign_set(dev, k1b: dict) -> None:
             failures.append(str(exc))
             log(f"campaign set [{len(records)}/{len(specs)}] FAILED: {exc}")
     for key, entry in k1b.items():
-        entry["launches_campaign_set"] = by_length[int(key[1:])]
+        entry["launches_campaign_set"] = by_row[f"K1{key}"]
     out = ROOT / "build" / "campaign_set.jsonl"
     out.parent.mkdir(exist_ok=True)
     out.write_text("".join(json.dumps(r) + "\n" for r in records))
@@ -3536,8 +3572,8 @@ def run_campaign_set(dev, k1b: dict) -> None:
         failures.append(bar)
     log(f"campaign set: {len(records)} runs, {sum(r['status'] in twin.ACCEPTED for r in records)} "
         f"passed; synthesis {sum(r['synthesis_s'] for r in records):.1f} s (worker processes), "
-        f"replays {sum(r['replay_s'] for r in records):.1f} s; K1 launches by block length "
-        f"{dict(sorted(by_length.items()))}; the phase "
+        f"replays {sum(r['replay_s'] for r in records):.1f} s; K1 launches by the shape's row "
+        f"{dict(sorted(by_row.items()))}; the phase "
         f"{time.perf_counter() - t_phase:.1f} s wall; records in {out.relative_to(ROOT)}")
     if failures:
         raise AssertionError(f"campaign set: {len(failures)} failure(s):\n" + "\n".join(failures))
@@ -4476,7 +4512,7 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     # The receiver paths of six JAX tests and five campaign trials, each held
     # to its test's bars and to the JAX receiver's record (K1 at 200 and
     # 500 ms blocks gets its launches here).
-    run_campaign(dev, scenes, {"B200": entries["K1B200"], "B500": entries["K1B500"]})
+    run_campaign(dev, scenes, {k: entries[k] for k in ("K1", "K1G", "K1B200", "K1B500")})
 
     # The cold chain: the CLI's first replay from a fresh tree with and
     # without the kernel preload, a cold start split, and a restart.

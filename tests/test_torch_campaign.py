@@ -5,7 +5,9 @@ drives, against the JAX package.
   levels equal tools/campaign.py's, and every record of
   tools/campaign_reference.jsonl (the JAX receiver's, tools/campaign_reference.py)
   holds the scenario its seed draws, so a stale file fails.
-- The comparison flags crafted divergences.
+- The comparison flags crafted divergences, and holds the two pipelined
+  tdcp runs' ``rescued`` to the expected list (the unpipelined records a
+  block later), not to the reference's pipelined rescue fault.
 - Live seams of the paths the records hold in full: the rescue tier on
   tests/test_rescue.py's Doppler step through both packages' TrackerBank at
   500 ms blocks on the default two-phase tracker (phase 1 in float32), the
@@ -93,14 +95,39 @@ def test_reference_records_hold_their_seeds_draws(reference):
 
 
 def test_reference_holds_the_minimum_set(reference):
-    """GPS seeds 0-27 and the nine scene runs, pipelined (the card's
-    default); the scenes also unpipelined, as their tests run."""
+    """GPS seeds 0-27 and every scene run, pipelined (the card's default);
+    the scenes also unpipelined, as their tests run."""
     have = {(twin.spec_key(r), r["pipelined"]) for r in reference}
     for seed in range(28):
         assert (twin.spec_key(twin.gps_spec(seed)), True) in have, seed
     for scene in twin.SCENES:
         for pipelined in (True, False):
             assert (twin.spec_key(twin.scene_spec(scene)), pipelined) in have, scene
+
+
+def test_reference_scenes_meet_their_bars(reference):
+    """Every JAX scene record meets its test's bars, but the one whose
+    fault the comparison names (``twin.reference_fault``), and the records
+    meet the pair bars."""
+    for rec in reference:
+        if rec["kind"] == "scene" and twin.reference_fault(rec) is None:
+            assert rec["status"] == "pass", (twin.spec_label(rec), rec["pipelined"],
+                                             rec.get("failed_bars"))
+    for pipelined in (True, False):
+        assert twin.pair_bars([r for r in reference if r["pipelined"] == pipelined
+                               or r.get("scene") == "pipeline_nav"]) == [], pipelined
+
+
+@pytest.mark.parametrize("scene", ["tdcp_on", "tdcp_off"])
+def test_expected_pipelined_rescues_are_the_unpipelined_records_a_block_later(reference, scene):
+    """C8: the expected list is the JAX unpipelined record's rescues one
+    1000 ms block later; the JAX pipelined record starts there too, then
+    alternates its PRNs (the reference's rescue fault, ROADMAP.md C5)."""
+    sync = twin.reference_for(reference, twin.scene_spec(scene), False)
+    pipe = twin.reference_for(reference, twin.scene_spec(scene), True)
+    assert twin.PIPELINED_TDCP_RESCUED == [[t + 1.0, prns] for t, prns in sync["rescued"]]
+    assert pipe["rescued"][0] == twin.PIPELINED_TDCP_RESCUED[0]
+    assert pipe["rescued"] != twin.PIPELINED_TDCP_RESCUED
 
 
 def _moved(rec, metres):
@@ -125,16 +152,42 @@ def _new_set(rec):
     return out
 
 
-@pytest.mark.parametrize("craft, ladder_flags, card_flags", [
-    (lambda r: copy.deepcopy(r), False, False),
-    (_new_status, True, True),
-    (_new_set, True, True),
-    (lambda r: _moved(r, 1.0), True, False),
-    (lambda r: _moved(r, 0.5), False, False),
-    (_new_epoch, True, False),
-], ids=["same", "status", "satellite_set", "1m", "half_metre", "epoch"])
-def test_comparison_flags_crafted_divergences(reference, craft, ladder_flags, card_flags):
-    ref = next(r for r in reference if r["kind"] == "gps" and r.get("fixes"))
+def _gps(reference):
+    return next(r for r in reference if r["kind"] == "gps" and r.get("fixes"))
+
+
+def _pipelined_tdcp(reference):
+    return twin.reference_for(reference, twin.scene_spec("tdcp_on"), True)
+
+
+def _rescued(rescues):
+    def craft(rec):
+        return {**copy.deepcopy(rec), "rescued": copy.deepcopy(rescues)}
+    return craft
+
+
+def _rescue_moved_a_block(rec):
+    out = _rescued(twin.PIPELINED_TDCP_RESCUED)(rec)
+    out["rescued"][2][0] += 1.0
+    return out
+
+
+@pytest.mark.parametrize("pick, craft, ladder_flags, card_flags", [
+    (_gps, lambda r: copy.deepcopy(r), False, False),
+    (_gps, _new_status, True, True),
+    (_gps, _new_set, True, True),
+    (_gps, lambda r: _moved(r, 1.0), True, False),
+    (_gps, lambda r: _moved(r, 0.5), False, False),
+    (_gps, _new_epoch, True, False),
+    (_pipelined_tdcp, _rescued(twin.PIPELINED_TDCP_RESCUED), False, False),
+    (_pipelined_tdcp, _rescue_moved_a_block, True, False),
+    (_pipelined_tdcp, lambda r: copy.deepcopy(r), True, False),
+    (_gps, _rescued([[1.0, [25]]]), True, False),
+], ids=["same", "status", "satellite_set", "1m", "half_metre", "epoch",
+        "tdcp_expected_rescues", "tdcp_rescue_moved_a_block", "tdcp_reference_alternation",
+        "gps_rescued"])
+def test_comparison_flags_crafted_divergences(reference, pick, craft, ladder_flags, card_flags):
+    ref = pick(reference)
     rec = craft(ref)
     assert bool(twin.compare(rec, ref, ladder=True)) == ladder_flags
     assert bool(twin.compare(rec, ref, ladder=False)) == card_flags

@@ -11,11 +11,12 @@ runs in float32 (``matmul_tracker_bf16=False``): the records hold the
 algorithm, not bf16 rounding.
 
 The set (``campaign_torch.reference_set``): GPS seeds 0-27, gauntlet seeds
-0-1 at each of the eight levels, GLONASS-DF seeds 0-3 and the nine scene
-runs, each pipelined (``pipeline_tracking=True``, the card's default); the
+0-1 at each of the eight levels, GLONASS-DF seeds 0-3 and the thirteen
+scene runs, each pipelined (``pipeline_tracking=True``, the card's default); the
 scenes also unpipelined, as their tests run. Each trial runs in a worker
-process of its own (spawn); records already in ``--out`` are kept and not
-run again, so an interrupted run resumes.
+process of its own (spawn); records already in ``--out`` are kept as they
+are and not run again (new ones are appended), so an interrupted run
+resumes.
 
 Usage (about 4 min a GPS trial on one worker; ~1.5-2 h at --jobs 4):
     python tools/campaign_reference.py --jobs 4
@@ -77,8 +78,8 @@ def jax_api() -> SimpleNamespace:
         GeoNavigationMessage=GeoNavigationMessage, constellation=constellation,
         scenarios=scenarios, ALL_PRN_IDS=ALL_PRN_IDS, SyntheticSatellite=SyntheticSatellite,
         synthesize_iq=synthesize_iq, lla_to_ecef=lla_to_ecef, IonoUtcParams=IonoUtcParams,
-        receiver=lambda source, cfg=None, eligible=None: Receiver(
-            source, cfg, eligible_prns=eligible),
+        receiver=lambda source, cfg=None, eligible=None, band="gps": Receiver(
+            source, cfg, eligible_prns=eligible, band=band),
         dual_receiver=lambda l1, l2, cfg: DualBandReceiver(
             None, l1, config=cfg, glonass_l2_source=l2),
         bank=lambda cfg, n: TrackerBank(twin.FS, twin.L, cfg, n_channels=n),
@@ -109,9 +110,8 @@ def main() -> int:
     args = ap.parse_args()
 
     out = Path(args.out)
-    done = set()
-    if out.exists():
-        done = {(twin.spec_key(r), r["pipelined"]) for r in twin.load_records(out)}
+    kept = twin.load_records(out) if out.exists() else []
+    done = {(twin.spec_key(r), r["pipelined"]) for r in kept}
     runs = [(s, p) for s, p in twin.reference_runs() if (twin.spec_key(s), p) not in done]
     if args.only:
         part = {"gps": lambda s: s["kind"] == "gps" and s["impairment"] == "none",
@@ -131,11 +131,17 @@ def main() -> int:
             f.flush()
             print(f"[{n}/{len(runs)}] pipelined={rec['pipelined']} {twin.summary_line(rec)}",
                   flush=True)
-    # Keep the file in the set's order, whatever order the workers finished in.
-    records = twin.load_records(out)
+    # The records kept stay where they were, byte for byte; the new ones
+    # follow them in the set's order, whatever order the workers finished in.
+    lines = [line for line in out.read_text().splitlines() if line.strip()]
+    new = lines[len(kept):]
     order = {(twin.spec_key(s), p): i for i, (s, p) in enumerate(twin.reference_runs())}
-    records.sort(key=lambda r: order.get((twin.spec_key(r), r["pipelined"]), len(order)))
-    out.write_text("".join(json.dumps(r) + "\n" for r in records))
+
+    def rank(line):
+        r = json.loads(line)
+        return order.get((twin.spec_key(r), r["pipelined"]), len(order))
+
+    out.write_text("".join(line + "\n" for line in lines[:len(kept)] + sorted(new, key=rank)))
     return 0
 
 
