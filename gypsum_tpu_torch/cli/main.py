@@ -330,19 +330,28 @@ def main(argv=None) -> int:
 def run_profiled(args) -> int:
     """Run the command under ``torch.profiler`` (host activity, and the
     card's with ``--device cuda``) and write its Chrome trace as
-    ``<command>.<pid>.pt.trace.json`` into ``args.profile_dir``."""
+    ``<command>.<pid>.pt.trace.json`` into ``args.profile_dir``. The
+    tracker's spans (``obs/spans.py``) show in it as ``user_annotation``
+    ranges."""
     import os
     import pathlib
 
     from torch.profiler import ProfilerActivity, profile
+
+    from gypsum_tpu_torch.obs import spans
 
     activities = [ProfilerActivity.CPU]
     if args.device == "cuda":
         activities.append(ProfilerActivity.CUDA)
     out = pathlib.Path(args.profile_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        rc = args.fn(args)
+    spans.enable(annotate=True)
+    try:
+        with profile(activities=activities) as prof:
+            rc = args.fn(args)
+    finally:
+        spans.disable()
+        spans.drain()
     path = out / f"{args.command}.{os.getpid()}.pt.trace.json"
     prof.export_chrome_trace(str(path))
     logging.getLogger("gypsum_tpu_torch").info("profile trace written to %s", path)

@@ -50,7 +50,6 @@ class ReceiverMetrics:
     # seen by a NotchingSampleSource front end (ops/interference.py).
     spoofing_alerts: dict = field(default_factory=lambda: defaultdict(int))
     interference_blocks: int = 0
-    counters: dict = field(default_factory=lambda: defaultdict(int))
     channels: dict = field(default_factory=dict)
     last_fix: dict | None = None
 

@@ -28,6 +28,7 @@ import torch
 
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
+from gypsum_tpu_torch.obs import spans
 from gypsum_tpu_torch.ops.kernels import CudaKernel, check_cuda_tensor
 
 _EPS = 1e-12
@@ -330,7 +331,8 @@ def fixup(
     init: torch.Tensor, corr_r: torch.Tensor, corr_i: torch.Tensor, p: FixupParams
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fixup: the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    if corr_r.device.type == "cpu":
-        return fixup_reference(init, corr_r, corr_i, p)
-    return fixup_cuda(init.contiguous(), corr_r.contiguous(), corr_i.contiguous(), p)
+    tensors; the host time of either is the ``k1`` span."""
+    with spans.span("k1"):
+        if corr_r.device.type == "cpu":
+            return fixup_reference(init, corr_r, corr_i, p)
+        return fixup_cuda(init.contiguous(), corr_r.contiguous(), corr_i.contiguous(), p)

@@ -30,6 +30,7 @@ import torch
 from gypsum_tpu_torch.core import aot
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.device import resolve_device
+from gypsum_tpu_torch.obs import spans
 from gypsum_tpu_torch.signal.prn import ALL_PRN_IDS, replica_table
 
 
@@ -569,29 +570,30 @@ class TrackerBank:
         The carry chains on the device from the previous dispatch (no host
         round trip unless an edit intervened). Collect results in dispatch
         order with collect_block()."""
-        prn_idx = np.array(
-            [self._prn_row[p] if p is not None else 0 for p in self.slot_prn],
-            dtype=np.int64,
-        )
-        replicas = self._device_replicas(prn_idx)
-        state_in = self._device_state if self._device_state is not None else self.state
-        samples = self._to_device(samples_block)
-        new_state, outs = self._fn.packed(state_in, samples, replicas)
-        self._device_state = new_state
-        ready = None
-        if outs.is_cuda:
-            # The block's one device->host copy starts now, into pinned
-            # memory, with an event behind it: collecting this block then
-            # waits for its own copy only, not for blocks dispatched later.
-            host = torch.empty(outs.shape, dtype=outs.dtype, pin_memory=True)
-            host.copy_(outs, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-            outs = host
-        self._pending.append(
-            _Dispatched(outs, ready, samples.shape[0], block_start_time, list(self.slot_prn),
-                        new_state.doppler)
-        )
+        with spans.span("bank.dispatch"):
+            prn_idx = np.array(
+                [self._prn_row[p] if p is not None else 0 for p in self.slot_prn],
+                dtype=np.int64,
+            )
+            replicas = self._device_replicas(prn_idx)
+            state_in = self._device_state if self._device_state is not None else self.state
+            samples = self._to_device(samples_block)
+            new_state, outs = self._fn.packed(state_in, samples, replicas)
+            self._device_state = new_state
+            ready = None
+            if outs.is_cuda:
+                # The block's one device->host copy starts now, into pinned
+                # memory, with an event behind it: collecting this block then
+                # waits for its own copy only, not for blocks dispatched later.
+                host = torch.empty(outs.shape, dtype=outs.dtype, pin_memory=True)
+                host.copy_(outs, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+                outs = host
+            self._pending.append(
+                _Dispatched(outs, ready, samples.shape[0], block_start_time, list(self.slot_prn),
+                            new_state.doppler)
+            )
 
     @property
     def pending_blocks(self) -> int:
@@ -609,16 +611,18 @@ class TrackerBank:
         slot->PRN binding at dispatch time."""
         if not self._pending:
             raise RuntimeError("no dispatched block to collect")
-        pend = self._pending.pop(0)
-        self._collected_doppler = pend.doppler
-        if pend.ready is not None:
-            pend.ready.synchronize()
-        # [N_OUT, S, B] host rows, copied out of the transfer buffer so the
-        # observations do not hold pinned memory.
-        t = np.ascontiguousarray(pend.outs.numpy().transpose(1, 2, 0))
-        outs = TrackBlockOutputs(*t[:8], t[8] > 0.5, t[9], t[10] > 0.5)
-        observations = self._build_observations(outs, pend.n_ms, pend.start_time, pend.slot_prn)
-        return pend.start_time, pend.n_ms, observations
+        with spans.span("bank.collect"):
+            pend = self._pending.pop(0)
+            self._collected_doppler = pend.doppler
+            if pend.ready is not None:
+                with spans.span("bank.wait"):
+                    pend.ready.synchronize()
+            # [N_OUT, S, B] host rows, copied out of the transfer buffer so
+            # the observations do not hold pinned memory.
+            t = np.ascontiguousarray(pend.outs.numpy().transpose(1, 2, 0))
+            outs = TrackBlockOutputs(*t[:8], t[8] > 0.5, t[9], t[10] > 0.5)
+            observations = self._build_observations(outs, pend.n_ms, pend.start_time, pend.slot_prn)
+            return pend.start_time, pend.n_ms, observations
 
     def process_block(self, samples_block, block_start_time: float) -> list[ChannelObservation]:
         """Track one [B, L] block synchronously (dispatch + collect).

@@ -36,6 +36,7 @@ from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
 from gypsum_tpu_torch.core.device import resolve_device
 from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex
+from gypsum_tpu_torch.obs import spans
 from gypsum_tpu_torch.ops import fixup as fx
 from gypsum_tpu_torch.ops.correlate import ascending_lag_rows, lag_window
 
@@ -145,10 +146,10 @@ def make_matmul_track_block_fn(
         rows = ascending_lag_rows(lag_window(replicas_wide, cpi0, length, k_eff), length)
         return rows, cpi0  # [S, NLE, L]
 
-    def correlate_block(rows: torch.Tensor, state: TrackState, chunks: torch.Tensor):
-        """Phase 1: all-lag correlations for every millisecond at once.
-        chunks: [B, L] complex (or [B, N, L] farm). Returns corr_r, corr_i
-        [B, S, NLE] float32."""
+    def wipe(rows: torch.Tensor, state: TrackState, chunks: torch.Tensor):
+        """Phase 1's operands: the block-start wipeoff folded into the lag
+        rows, w_r, w_i [S, L, NLE], and the samples' planes cr, ci [B, L]
+        (farm: [B, N, L]), in the product's precision."""
         phase0 = state.carrier_phase[:, None] + (
             2.0 * math.pi * (state.doppler + state.carrier_offset)[:, None] * l_over_fs[None, :]
         )  # [S, L]
@@ -158,25 +159,31 @@ def make_matmul_track_block_fn(
         w_i = to_mm(-rows_lj * s0[:, :, None])
         cr = to_mm(chunks.real.contiguous())
         ci = to_mm(chunks.imag.contiguous())
+        return cr, ci, w_r, w_i
 
-        def product(cr, ci, w_r, w_i):
-            """corr = c . W with complex c and W: re = cr.wr - ci.wi,
-            im = cr.wi + ci.wr; all four products as ONE matmul
-            [2B, L] x [L, 2 S NLE]."""
-            b_count, s_count = cr.shape[0], w_r.shape[0]
-            w = torch.stack([w_r, w_i]).permute(2, 0, 1, 3).reshape(length, -1)
-            prod = _mm_f32(torch.cat([cr, ci]), w).reshape(2, b_count, 2, s_count, n_lags_eff)
-            return prod[0, :, 0] - prod[1, :, 1], prod[0, :, 1] + prod[1, :, 0]
+    def product(cr, ci, w_r, w_i):
+        """corr = c . W with complex c and W: re = cr.wr - ci.wi,
+        im = cr.wi + ci.wr; all four products as ONE matmul
+        [2B, L] x [L, 2 S NLE]."""
+        b_count, s_count = cr.shape[0], w_r.shape[0]
+        w = torch.stack([w_r, w_i]).permute(2, 0, 1, 3).reshape(length, -1)
+        prod = _mm_f32(torch.cat([cr, ci]), w).reshape(2, b_count, 2, s_count, n_lags_eff)
+        return prod[0, :, 0] - prod[1, :, 1], prod[0, :, 1] + prod[1, :, 0]
 
+    def products(cr, ci, w_r, w_i):
+        """Phase 1's correlations for every millisecond at once: corr_r,
+        corr_i [B, S, NLE] float32."""
         if farm_groups is None:
+            spans.count("phase1.products")
             corr_r, corr_i = product(cr, ci, w_r, w_i)
         else:
             # One product a stream, its channels laid out as the
             # single-stream tracker lays them out: a stream's channels get
             # the sums they would get tracked alone (the same product
             # shapes), whatever the other streams hold.
-            shape = (chunks.shape[0], rows.shape[0], n_lags_eff)
-            corr_r = torch.empty(shape, dtype=torch.float32, device=chunks.device)
+            spans.count("phase1.products", len(farm_groups))
+            shape = (cr.shape[0], w_r.shape[0], n_lags_eff)
+            corr_r = torch.empty(shape, dtype=torch.float32, device=cr.device)
             corr_i = torch.empty_like(corr_r)
             for n, idx in farm_groups:
                 corr_r[:, idx], corr_i[:, idx] = product(cr[:, n], ci[:, n], w_r[idx], w_i[idx])
@@ -186,13 +193,17 @@ def make_matmul_track_block_fn(
         """The state as [S] device tensors, the fixup's initial carry
         [N_CARRY, S] and the block's correlations corr_r, corr_i
         [B, S, NLE]."""
-        state = device_state(state, device)
-        if samples_block.is_complex():
-            chunks = samples_block.to(torch.complex64)
-        else:
-            chunks = to_complex(dequantize_planes(samples_block, input_offset))
-        rows, cpi0 = build_rows(replicas_wide, state)
-        corr_r, corr_i = correlate_block(rows, state, chunks)  # [B, S, NLE]
+        with spans.span("phase1.inputs"):
+            state = device_state(state, device)
+            if samples_block.is_complex():
+                chunks = samples_block.to(torch.complex64)
+            else:
+                chunks = to_complex(dequantize_planes(samples_block, input_offset))
+        with spans.span("phase1.wipe"):
+            rows, cpi0 = build_rows(replicas_wide, state)
+            operands = wipe(rows, state, chunks)
+        with spans.span("phase1.products"):
+            corr_r, corr_i = products(*operands)  # [B, S, NLE]
 
         # The phase-1 wipeoff reference is the block-start state.
         f32 = torch.float32
@@ -205,9 +216,12 @@ def make_matmul_track_block_fn(
     def track_block_packed(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
         """(state', outs [B, N_OUT, S] float32): the fixup's outputs as it
         wrote them, rows in ``fx.O_*`` order."""
-        state, init, corr_r, corr_i = phase1(state, samples_block, replicas_wide)
-        fin, outs = run_fixup(init, corr_r, corr_i, params)
-        return state_from_carry(fin, state.carrier_offset), outs
+        with spans.span("track.block"):
+            spans.count("track.blocks")
+            state, init, corr_r, corr_i = phase1(state, samples_block, replicas_wide)
+            fin, outs = run_fixup(init, corr_r, corr_i, params)
+            with spans.span("track.carry"):
+                return state_from_carry(fin, state.carrier_offset), outs
 
     track_block = block_fn_from_packed(track_block_packed)
     # Phase 1 and the fixup's constants on their own hold the fixup kernel

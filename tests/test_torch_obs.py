@@ -244,3 +244,24 @@ def test_cli_profile_dir_writes_a_trace(capture, tmp_path):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_cli_profile_dir_shows_the_tracker_spans(capture, tmp_path):
+    """A replay's trace holds the tracker's spans (obs/spans.py) as
+    user_annotation ranges, each block's inside its ``bank.dispatch``."""
+    from gypsum_tpu_torch.cli.main import main
+    from gypsum_tpu_torch.obs import spans
+
+    assert main(["--device", "cpu", "--profile-dir", str(tmp_path / "prof"), "replay", "--file",
+                 str(capture), "--prns", "25", "--duration", "1"]) == 0
+    assert spans.drain() == ([], {}) and spans.span("after") is spans.OFF
+    (trace,) = (tmp_path / "prof").glob("replay.*.pt.trace.json")
+    ranges = {}
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    names = {"bank.dispatch", "track.block", "phase1.inputs", "phase1.wipe", "phase1.products", "k1",
+             "track.carry", "bank.collect"}
+    assert names <= set(ranges)
+    for start, end in ranges["track.block"]:
+        assert any(s <= start and end <= e for s, e in ranges["bank.dispatch"])
