@@ -7,7 +7,7 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
 1. device: the card's name and power limit (``nvidia-smi``); the replays'
    scenes start synthesizing in worker processes (``Scenes``), which takes
    the host minutes and overlaps steps 2-4;
-2. build: the five hand-written kernels from ``gypsum_tpu_torch/csrc`` with
+2. build: the six hand-written kernels from ``gypsum_tpu_torch/csrc`` with
    ``nvcc`` (one process each, in parallel), and a kernel that does nothing
    (``csrc/empty.cu``, the yardstick of a launch);
 3. each kernel against its plain PyTorch version, timed beside its bound:
@@ -44,6 +44,16 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    And K2 at the deep sweep's shape (K2 D): the [256, 2046] accumulator
    (32 PRNs x 8 Doppler bins) of a default 200 ms deep search, max and
    argmax exact, the sum within 1e-6 of the largest row sum, two runs equal.
+   And phase 1's sample operand (IQ, ``csrc/iq_operand.cu``, which replaces
+   no TPU kernel): every word type to bf16 and float32 at an even and an odd
+   L, a base not aligned to the wide load, a single stream, the GLONASS
+   L1OF and L2OF blocks ([1000, 4092] complex64) and both benchmark farm
+   cells' blocks ([1000, 64, 2046, 2] and [1000, 32, 4092, 2] int8),
+   identical to the bit to its plain version and to the chain it replaced;
+   phase 1's sums with it identical to the bit to the old chain's on the
+   synthetic block, on both GLONASS bands' blocks and at both cells'
+   shapes, one launch a block; timed beside the old chain and phase 1 with
+   and without it.
 
    Every kernel, its plain version and its library call are timed two ways
    (``two_way``), in turns within this one run. The **issue time** is what
@@ -220,7 +230,9 @@ Drives the port (``gypsum_tpu_torch``) on the card, with no JAX:
    from M2's rank 0, the other ranks' and the farm's beside them), and K1
    at 200 and 500 ms blocks (K1 B=200 and B=500: [200, 12, 27] and
    [500, 12, 31] held to the bit at step 3, launches from step 13); K1's
-   entry carries its launches per ``rtk`` run (``rtk_launches``);
+   entry carries its launches per ``rtk`` run (``rtk_launches``); the IQ
+   entry its launches in the default replay (one a block, as K1; every
+   GLONASS replay holds them to K1's count);
 16. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -229,7 +241,8 @@ It exits with an error at once when no CUDA device is present.
 ``python3 chip_smoke.py --kernels-only`` stops after step 3, and
 ``--kernels-only=K2,K4`` checks and times only the kernels it names (K1G,
 K2G, K4G and K5G name the GLONASS checks, K2D the deep sweep's, K1M the
-mesh's, K1B200 and K1B500 K1 at 200 and 500 ms blocks): a short run for work on a kernel (no replay, so no launch counts
+mesh's, K1B200 and K1B500 K1 at 200 and 500 ms blocks, IQ the operand
+kernel's): a short run for work on a kernel (no replay, so no launch counts
 and no result line). ``--mesh-only`` runs K1 M, the farm, the default
 replay of the GPS scene and step 11 (no result line); ``--cold-only`` runs
 step 14 alone, on the GPS scene (no result line); ``--campaign-only`` holds
@@ -635,10 +648,11 @@ def check_fixup_mesh(dev, sats, samples) -> dict:
 def check_farm(dev, sats, samples) -> int:
     """``make_farm_track_block_fn`` at bench.py:353's geometry (8 streams x
     8 channels, one 1000 ms block) against each stream tracked alone, with
-    tests/test_farm.py's bars; K1's launches around each. Returns the farm
-    block's K1 launches."""
+    tests/test_farm.py's bars; K1's and the operand kernel's launches
+    around each (one a block). Returns the farm block's K1 launches."""
     from gypsum_tpu_torch.core.config import TrackingConfig
     from gypsum_tpu_torch.ops.fixup import FIXUP_KERNEL
+    from gypsum_tpu_torch.ops.iq_operand import IQ_OPERAND_KERNEL
     from gypsum_tpu_torch.track.loop import make_farm_track_block_fn, make_track_block_fn
 
     soc, state, streams, replicas = farm_inputs(sats, samples)
@@ -647,12 +661,13 @@ def check_farm(dev, sats, samples) -> int:
     single = make_track_block_fn(cfg, L, FS, FARM_CHANNELS, device=dev)
     farm(state, streams, replicas)  # warm: the first call pays cuBLAS's set-up
     torch.cuda.synchronize()
-    FIXUP_KERNEL.launches = 0
+    FIXUP_KERNEL.launches = IQ_OPERAND_KERNEL.launches = 0
     t0 = time.perf_counter()
     s_farm, o_farm = farm(state, streams, replicas)
     torch.cuda.synchronize()
     farm_ms, farm_launches = 1e3 * (time.perf_counter() - t0), FIXUP_KERNEL.launches
-    FIXUP_KERNEL.launches = 0
+    farm_iq = IQ_OPERAND_KERNEL.launches
+    FIXUP_KERNEL.launches = IQ_OPERAND_KERNEL.launches = 0
     alone_s, identical = 0.0, True
     worst = {"doppler": 0.0, "code_phase": 0.0, "prompt_i": 0.0}
     for n in range(FARM_STREAMS):
@@ -680,14 +695,278 @@ def check_farm(dev, sats, samples) -> int:
     if farm_launches != 1 or FIXUP_KERNEL.launches != FARM_STREAMS:
         raise AssertionError(f"farm launched K1 {farm_launches} times, the streams alone "
                              f"{FIXUP_KERNEL.launches}")
+    if farm_iq != 1 or IQ_OPERAND_KERNEL.launches != FARM_STREAMS:
+        raise AssertionError(f"farm launched the operand kernel {farm_iq} times, the streams "
+                             f"alone {IQ_OPERAND_KERNEL.launches}")
     log(f"farm: make_farm_track_block_fn, {FARM_STREAMS} streams x {FARM_CHANNELS} channels, "
         f"one 1000 ms block: equals each stream tracked alone"
         f"{', identical to the bit' if identical else ''} (max |diff| doppler "
         f"{worst['doppler']:.3g} Hz, code phase {worst['code_phase']:.3g} samples, prompt_i "
         f"{worst['prompt_i']:.3g}; locked equal; {locked}/{len(soc)} locked at block end); "
         f"{farm_ms:.3f} ms for the farm's block, {1e3 * alone_s:.3f} ms for the 8 streams alone "
-        f"(host clock, synchronized); K1 launches: farm {farm_launches}, alone {FARM_STREAMS}")
+        f"(host clock, synchronized); K1 and operand launches: farm {farm_launches} and "
+        f"{farm_iq}, alone {FARM_STREAMS} each")
     return farm_launches
+
+
+# ------------------------------------------- phase 3: phase 1's sample operand
+
+
+# The benchmark's farm cells (portbench/configs/): streams, channels, L.
+IQ_CELLS = ("gps_l1ca_2046k", "glonass_l1of_4092k")
+
+
+def old_operand_rows(samples, offset: float, bf16: bool) -> list:
+    """The samples' side of phase 1 as track/matmul.py ran it before
+    csrc/iq_operand.cu: dequantize, complex, the two planes, the product's
+    precision, and one torch.cat([cr, ci]) [2B, L] a stream."""
+    from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex
+
+    if samples.is_complex():
+        chunks = samples.to(torch.complex64)
+    else:
+        chunks = to_complex(dequantize_planes(samples, offset))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    cr, ci = chunks.real.contiguous().to(dtype), chunks.imag.contiguous().to(dtype)
+    if cr.dim() == 2:
+        return [torch.cat([cr, ci])]
+    return [torch.cat([cr[:, n], ci[:, n]]) for n in range(cr.shape[1])]
+
+
+def old_phase1(cfg, length: int, fs: float, state, samples, replicas, groups, offset=0.0):
+    """corr_r, corr_i [B, S, NLE] as track/matmul.py computed them before
+    csrc/iq_operand.cu (its lag rows, wipe and products, copied); ``groups``
+    is [(stream, its channels' index tensor on the card)], or None for a
+    single stream. ``state`` holds [S] tensors on the card."""
+    import math
+
+    from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
+    from gypsum_tpu_torch.ops.correlate import ascending_lag_rows, lag_window
+    from gypsum_tpu_torch.track.matmul import _mm_f32, lag_window_size
+
+    nle = lag_window_size(cfg, length)
+    f_aid = cfg.aiding_carrier_hz or GPS_L1_FREQUENCY_HZ
+    aiding = (length / f_aid) if cfg.carrier_aiding else 0.0
+    mid = -aiding * state.doppler * (cfg.block_size_ms / 2.0)
+    cpi0 = torch.remainder(torch.floor(state.code_phase + mid).to(torch.int64), length)
+    rows = ascending_lag_rows(lag_window(replicas, cpi0, length, (nle - 1) // 2), length)
+    # On the card (a CUDA graph captures this): float64 l / fs rounded once,
+    # as track/matmul.py's numpy table.
+    l_over_fs = (torch.arange(length, dtype=torch.float64, device=replicas.device) / fs).float()
+    phase0 = state.carrier_phase[:, None] + (
+        2.0 * math.pi * (state.doppler + state.carrier_offset)[:, None] * l_over_fs[None, :])
+    c0, s0 = torch.cos(phase0), torch.sin(phase0)
+    rows_lj = rows.transpose(1, 2)
+    dtype = torch.bfloat16 if cfg.matmul_tracker_bf16 else torch.float32
+    w_r, w_i = (rows_lj * c0[:, :, None]).to(dtype), (-rows_lj * s0[:, :, None]).to(dtype)
+    chunks = old_operand_rows(samples, offset, cfg.matmul_tracker_bf16)
+
+    def product(c, w_r, w_i):
+        b_count, s_count = c.shape[0] // 2, w_r.shape[0]
+        w = torch.stack([w_r, w_i]).permute(2, 0, 1, 3).reshape(length, -1)
+        prod = _mm_f32(c, w).reshape(2, b_count, 2, s_count, nle)
+        return prod[0, :, 0] - prod[1, :, 1], prod[0, :, 1] + prod[1, :, 0]
+
+    if groups is None:
+        return product(chunks[0], w_r, w_i)
+    corr_r = torch.empty((chunks[0].shape[0] // 2, len(state.doppler), nle),
+                         dtype=torch.float32, device=replicas.device)
+    corr_i = torch.empty_like(corr_r)
+    for n, idx in groups:
+        corr_r[:, idx], corr_i[:, idx] = product(chunks[n], w_r[idx], w_i[idx])
+    return corr_r, corr_i
+
+
+def iq_cell(name: str, dev, seed: int) -> dict:
+    """A farm cell's block on the card: random int8 words [B, N, L, 2] over
+    the whole range, random +/-1 replica rows, a random carry (FDMA offsets
+    on GLONASS) as [S] tensors, the cell's tracking config."""
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.track.loop import device_state, fresh_state
+
+    conf = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())
+    cfg = TrackingConfig(**conf["tracking"])
+    n, per, length = conf["streams"], conf["channels_per_stream"], conf["samples_per_ms"]
+    s_count = n * per
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    words = torch.randint(-128, 128, (cfg.block_size_ms, n, length, 2), dtype=torch.int8,
+                          device=dev, generator=gen)
+    code = 2.0 * torch.randint(0, 2, (s_count, length), device=dev, generator=gen,
+                               dtype=torch.float32) - 1.0
+    replicas = torch.cat([code, code, code[:, : 2 * cfg.lag_window_half_width]], dim=1)
+    rng = np.random.default_rng(seed)
+    offsets = np.asarray(conf.get("signals", [0]), np.float64) * conf.get("fdma_spacing_hz", 0.0)
+    state = device_state(fresh_state(s_count)._replace(
+        code_phase=rng.uniform(0, length, s_count).astype(np.float32),
+        carrier_phase=rng.uniform(0, 2 * np.pi, s_count).astype(np.float32),
+        doppler=rng.uniform(-4000, 4000, s_count).astype(np.float32),
+        carrier_offset=rng.choice(offsets, s_count).astype(np.float32),
+    ), dev)
+    soc = np.repeat(np.arange(n), per).astype(np.int32)
+    groups = [(int(k), torch.as_tensor(np.flatnonzero(soc == k), device=dev)) for k in range(n)]
+    return {"cfg": cfg, "length": length, "fs": conf["sample_rate_hz"], "words": words,
+            "replicas": replicas, "state": state, "soc": soc, "groups": groups}
+
+
+def hold_iq_operand(what: str, samples, offset: float, bf16: bool, old: bool = False) -> None:
+    """The kernel against its plain version (and, with ``old``, against the
+    chain it replaced), every stream's rows identical to the bit."""
+    from gypsum_tpu_torch.ops.iq_operand import iq_operand_cuda, iq_operand_reference
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    got = iq_operand_cuda(samples, offset, dtype)
+    want = iq_operand_reference(samples, offset, dtype)
+    torch.cuda.synchronize()
+    if got.dtype != dtype or got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got.float() != want.float()).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"IQ {what}: kernel != plain ({bad} values differ)")
+    if got.stride(0) * got.element_size() % 256:
+        raise AssertionError(f"IQ {what}: streams {got.stride(0)} elements apart, not 256 bytes")
+    if old:
+        for n, rows in enumerate(old_operand_rows(samples, offset, bf16)):
+            if not torch.equal(got[n], rows):
+                raise AssertionError(f"IQ {what}: stream {n} differs from the old chain's rows")
+    log(f"IQ {what}: kernel == plain{' == the old chain' if old else ''}, identical to the bit "
+        f"({tuple(got.shape)} {dtype})")
+
+
+def iq_bound(samples) -> tuple[float, str]:
+    """The operand kernel's bound: every word read once and every bf16
+    output written once (2 bytes a word)."""
+    n_words = samples.numel()
+    return bound(n_words * samples.element_size() + 2 * n_words, 2 * n_words)
+
+
+def check_iq_operand(dev, sats, samples, glonass_blocks) -> dict:
+    """Phase 1's sample operand (csrc/iq_operand.cu) against its plain
+    version to the bit: every word type (int8, uint8 at offset 127.5,
+    int16, float32, complex64) to bf16 and float32 at an even and an odd L,
+    a view whose base is not aligned to the wide load, a row wider than
+    48 KB of shared memory, a single stream, the GLONASS L1OF and L2OF
+    single-stream blocks ([1000, 4092] complex64, one staged row a thread
+    block), and both farm cells' blocks (also against the chain it
+    replaced). Phase 1's sums with it equal to the bit to the old chain's,
+    on the synthetic block's 12 channels, on each GLONASS band's 12 and at
+    both cells' shapes, one launch a block. Times at the cells' shapes: the
+    kernel, its plain version, the old chain, and phase 1 with and without
+    it."""
+    from gypsum_tpu_torch.core.config import TrackingConfig
+    from gypsum_tpu_torch.ops.iq_operand import (
+        IQ_OPERAND_KERNEL, iq_operand_cuda, iq_operand_reference)
+    from gypsum_tpu_torch.track.loop import device_state
+    from gypsum_tpu_torch.track.matmul import make_matmul_track_block_fn
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    # 20 ms: two whole groups of staged rows and a part group; at L = 62 the
+    # imaginary plane starts off a 16-byte boundary; L = 31 takes one word a
+    # load.
+    for length in (62, 31):
+        shape = (20, 3, length, 2)
+        words = {
+            "int8": (torch.randint(-128, 128, shape, dtype=torch.int8, device=dev, generator=gen), 0.0),
+            "uint8 at offset 127.5": (torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                                                    generator=gen), 127.5),
+            "int16": (torch.randint(-32768, 32768, shape, dtype=torch.int16, device=dev,
+                                    generator=gen), 0.0),
+            "float32": (300.0 * torch.randn(shape, device=dev, generator=gen), 5.0),
+        }
+        words["complex64"] = (torch.view_as_complex(words["float32"][0]), 0.0)
+        for name, (x, offset) in words.items():
+            for bf16 in (True, False):
+                hold_iq_operand(f"{name}, [20, 3, {length}], {'bf16' if bf16 else 'float32'}",
+                                x, offset, bf16, old=True)
+    planes = 300.0 * torch.randn(7 * 62 * 2 + 2, device=dev, generator=gen)
+    hold_iq_operand("float32 planes 8 bytes into their storage (one word a load)",
+                    planes[2:].view(7, 62, 2), 0.0, True, old=True)
+    wide = 300.0 * torch.randn((3, 2, 8184, 2), device=dev, generator=gen)
+    hold_iq_operand("float32 planes at L = 8184 (a row past 48 KB of shared memory)",
+                    wide, 0.0, True, old=True)
+
+    cfg = TrackingConfig()
+    bank, replicas = checks_bank(sats, dev, cfg)
+    hold_iq_operand("the synthetic block, complex64 [1000, 2046]", samples, 0.0, True, old=True)
+    IQ_OPERAND_KERNEL.launches = 0
+    state = device_state(bank.state, dev)
+    _, _, got_r, got_i = bank._fn.phase1(state, samples, replicas)
+    want_r, want_i = old_phase1(cfg, L, FS, state, samples, replicas, None)
+    if IQ_OPERAND_KERNEL.launches != 1:
+        raise AssertionError(f"a single stream's phase 1 launched IQ {IQ_OPERAND_KERNEL.launches} times")
+    if not (torch.equal(got_r, want_r) and torch.equal(got_i, want_i)):
+        raise AssertionError("IQ: phase 1's sums on the synthetic block differ from the old chain's")
+    log(f"IQ: phase 1 on the synthetic block ({N_CH} channels), corr_r and corr_i identical to "
+        f"the bit to the old chain's; 1 launch")
+    for band in ("l1", "l2"):
+        g_sats, truth, g_samples = glonass_blocks[band]
+        what = f"the GLONASS {band.upper()}OF block, complex64 [{B_MS}, {L_GLO}]"
+        hold_iq_operand(what, g_samples, 0.0, True, old=True)
+        g_bank, g_replicas = glonass_bank(band, g_sats, truth, dev)
+        g_state = device_state(g_bank.state, dev)
+        IQ_OPERAND_KERNEL.launches = 0
+        _, _, got_r, got_i = g_bank._fn.phase1(g_state, g_samples, g_replicas)
+        want_r, want_i = old_phase1(g_bank.config, L_GLO, FS_GLO, g_state, g_samples, g_replicas,
+                                    None)
+        if IQ_OPERAND_KERNEL.launches != 1:
+            raise AssertionError(f"IQ {what}: phase 1 launched the kernel "
+                                 f"{IQ_OPERAND_KERNEL.launches} times")
+        if not (torch.equal(got_r, want_r) and torch.equal(got_i, want_i)):
+            bad = int((got_r != want_r).sum() + (got_i != want_i).sum())
+            raise AssertionError(f"IQ {what}: phase 1's sums differ from the old chain's at {bad} "
+                                 f"of {2 * got_r.numel()}")
+        log(f"IQ: phase 1 on {what} ({N_CH} channels, NLE {got_r.shape[2]}), corr_r and corr_i "
+            f"identical to the bit to the old chain's; 1 launch")
+
+    entry = {
+        "name": "IQ phase 1's sample operand at the farm cells' blocks",
+        "route": "cuda",
+        "source": "gypsum_tpu_torch/csrc/iq_operand.cu",
+        "replaces": "none (the JAX package leaves these passes to XLA)",
+        "max_abs_err": 0.0,
+    }
+    for name in IQ_CELLS:
+        cell = iq_cell(name, dev, seed=2147483000 + len(name))
+        words, c = cell["words"], cell["cfg"]
+        hold_iq_operand(f"{name}, [{', '.join(map(str, words.shape[:3]))}] int8", words, 0.0, True,
+                        old=True)
+        hold_iq_operand(f"{name}, one stream", words[:, 0].contiguous(), 0.0, True, old=True)
+        fn = make_matmul_track_block_fn(c, cell["length"], cell["fs"], len(cell["soc"]),
+                                        stream_of_channel=cell["soc"], device=dev)
+        IQ_OPERAND_KERNEL.launches = 0
+        _, _, got_r, got_i = fn.phase1(cell["state"], words, cell["replicas"])
+        launched = IQ_OPERAND_KERNEL.launches
+        args = (c, cell["length"], cell["fs"], cell["state"], words, cell["replicas"],
+                cell["groups"])
+        want_r, want_i = old_phase1(*args)
+        if launched != 1:
+            raise AssertionError(f"IQ {name}: a farm block launched the kernel {launched} times")
+        if not (torch.equal(got_r, want_r) and torch.equal(got_i, want_i)):
+            bad = int((got_r != want_r).sum() + (got_i != want_i).sum())
+            raise AssertionError(f"IQ {name}: phase 1's sums differ from the old chain's at {bad} "
+                                 f"of {2 * got_r.numel()}")
+        log(f"IQ {name}: phase 1's corr_r, corr_i [{', '.join(map(str, got_r.shape))}] identical "
+            f"to the bit to the old chain's; 1 launch a block")
+        del got_r, got_i, want_r, want_i
+        times = two_way({
+            "kernel": (lambda: iq_operand_cuda(words, 0.0, torch.bfloat16), 20, 2),
+            "plain": (lambda: iq_operand_reference(words, 0.0, torch.bfloat16), 5, 1),
+            "chain": (lambda: old_operand_rows(words, 0.0, True), 3, 1),
+            "phase1": (lambda: fn.phase1(cell["state"], words, cell["replicas"]), 3, 1),
+            "old_phase1": (lambda: old_phase1(*args), 3, 1),
+        })
+        bound_ms, bound_by = iq_bound(words)
+        kernel_ms = times["kernel"][0]
+        log(f"IQ {name}: kernel {kernel_ms:.5f} ms device, {times['kernel'][1]:.5f} ms issue, "
+            f"bound {bound_ms:.5f} ms ({bound_by}, {100 * bound_ms / kernel_ms:.1f} %); the old "
+            f"chain {times['chain'][0]:.5f} ms; phase 1 {times['phase1'][0]:.5f} ms against "
+            f"{times['old_phase1'][0]:.5f} ms with the old chain (device)")
+        keys = {**timing_keys(times), "bound_ms": bound_ms, "bound_by": bound_by,
+                **{f"{k}_ms": times[k][0] for k in ("chain", "phase1", "old_phase1")}}
+        if name == IQ_CELLS[0]:
+            entry.update(keys)
+        else:
+            entry["glonass"] = keys
+        del cell, fn, words, args
+        torch.cuda.empty_cache()
+    return entry
 
 
 # ---------------------------------------------------------------- phase 4: K2
@@ -1835,7 +2114,7 @@ def run_glonass_replays(dev, scenes: "Scenes", g1: dict, g2: dict, g4: dict, g5:
     n = launches()
     g1["launches"] = n["K1"]
     blocks = round(recv.source.seconds_consumed)
-    if n["K1"] != blocks or n["K2"] != 0:
+    if n["K1"] != blocks or n["K2"] != 0 or n["IQ"] != n["K1"]:
         raise AssertionError(f"GLONASS-only replay of {blocks} blocks launched {n}")
     log(f"e2e GLONASS-only Receiver(band='glonass', device='cuda'), default config: "
         f"{len(errs)} fixes, first at {recv.world.position_fixes[0].receiver_timestamp:.1f} s, "
@@ -1848,7 +2127,7 @@ def run_glonass_replays(dev, scenes: "Scenes", g1: dict, g2: dict, g4: dict, g5:
     recv_b, acq_b, errs_b, wall_b = run_glonass_receiver(iq, dev, peak_kernel=True)
     n = launches()
     g2["launches"] = n["K2"]
-    if n["K2"] == 0 or n["K1"] == 0:
+    if n["K2"] == 0 or n["K1"] == 0 or n["IQ"] != n["K1"]:
         raise AssertionError(f"the GLONASS peak-reduce run launched {n}")
     if [a[:4] for a in acq] != [b[:4] for b in acq_b] or not np.allclose(
             [a[4] for a in acq], [b[4] for b in acq_b], rtol=1e-5):
@@ -1863,7 +2142,7 @@ def run_glonass_replays(dev, scenes: "Scenes", g1: dict, g2: dict, g4: dict, g5:
         use_pallas_correlator=True)
     n = launches()
     g4["launches"] = n["K4"]
-    if n["K4"] != 1000 * blocks or n["K1"] != 0 or n["K3"] != 0:
+    if n["K4"] != 1000 * blocks or n["K1"] != 0 or n["K3"] != 0 or n["IQ"] != 0:
         raise AssertionError(f"GLONASS K4 scan replay of {blocks} blocks launched {n}")
     agree = check_same_tracking("GLONASS K4 scan", recv_c, acq_c, glonass_recv, acq, GLO_PRNS)
     log(f"e2e GLONASS-only, scan tracker with use_pallas_correlator=True: {len(errs_c)} fixes, "
@@ -1879,7 +2158,7 @@ def run_glonass_replays(dev, scenes: "Scenes", g1: dict, g2: dict, g4: dict, g5:
     g5["launches"] = n["K5"]
     blocks = processed_blocks(out)
     fixes = cli_fixes(out)
-    if n["K5"] < blocks or n["K1"] == 0 or not fixes:
+    if n["K5"] < blocks or n["K1"] == 0 or n["IQ"] != n["K1"] or not fixes:
         raise AssertionError(f"GLONASS 8.184 Msps CLI replay: {blocks} blocks, {len(fixes)} "
                              f"fixes, launches {n}:\n{out[-2000:]}")
     errs = [float(np.linalg.norm(f[0] - rx)) for f in fixes]
@@ -1897,7 +2176,7 @@ def run_glonass_replays(dev, scenes: "Scenes", g1: dict, g2: dict, g4: dict, g5:
     n = launches()
     blocks = processed_blocks(out)
     fixes = cli_fixes(out)
-    if not fixes or n["K1"] != 2 * blocks:
+    if not fixes or n["K1"] != 2 * blocks or n["IQ"] != n["K1"]:
         raise AssertionError(f"GPS + GLONASS CLI replay: {len(fixes)} fixes, {blocks} blocks, "
                              f"launches {n}:\n{out[-2000:]}")
     ecef, isb, sats = fixes[-1]
@@ -1917,7 +2196,7 @@ def run_glonass_replays(dev, scenes: "Scenes", g1: dict, g2: dict, g4: dict, g5:
     n = launches()
     fixes = dual.world.position_fixes
     blocks = round(dual.glonass.source.seconds_consumed)
-    if not fixes or n["K1"] != 2 * blocks:
+    if not fixes or n["K1"] != 2 * blocks or n["IQ"] != n["K1"]:
         raise AssertionError(f"L1OF + L2OF: {len(fixes)} fixes, {blocks} blocks, launches {n}")
     last = fixes[-1]
     err = float(np.linalg.norm(last.ecef - rx))
@@ -4276,6 +4555,7 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     from gypsum_tpu_torch.ops import kernels
     from gypsum_tpu_torch.ops.fir_decimate import FIR_DECIMATE_KERNEL
     from gypsum_tpu_torch.ops.fixup import FIXUP_KERNEL
+    from gypsum_tpu_torch.ops.iq_operand import IQ_OPERAND_KERNEL
     from gypsum_tpu_torch.ops.peak_reduce import PEAK_REDUCE_KERNEL
     from gypsum_tpu_torch.ops.track_block import TRACK_BLOCK_KERNEL
     from gypsum_tpu_torch.ops.wipeoff_lag import WIPEOFF_LAG_KERNEL
@@ -4284,7 +4564,7 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     EMPTY_KERNEL = kernels.CudaKernel(
         "empty", "empty_launch", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     KERNELS.update(K1=FIXUP_KERNEL, K2=PEAK_REDUCE_KERNEL, K3=TRACK_BLOCK_KERNEL,
-                   K4=WIPEOFF_LAG_KERNEL, K5=FIR_DECIMATE_KERNEL)
+                   K4=WIPEOFF_LAG_KERNEL, K5=FIR_DECIMATE_KERNEL, IQ=IQ_OPERAND_KERNEL)
     resolve_device(dev)
     if only == "cold":
         # A short run for work on the cold chain (no result line).
@@ -4327,6 +4607,7 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
         "K1M": lambda: check_fixup_mesh(dev, sats, samples),
         "K1B200": lambda: check_fixup_block_length(dev, sats, samples, 200),
         "K1B500": lambda: check_fixup_block_length(dev, sats, samples, 500),
+        "IQ": lambda: check_iq_operand(dev, sats, samples, glonass()),
     }
     if only == "mesh":
         # A short run for work on scale-out (no result line).
@@ -4370,8 +4651,12 @@ def smoke(dev, only: str | None, scenes: Scenes | None) -> int:
     n = launches()
     mesh_ref = mesh_reference(recv)  # what the mesh replays are held to
     k1["launches"] = n["K1"]
+    entries["IQ"]["launches"] = n["IQ"]
     if n["K1"] == 0:
         raise AssertionError("the main path never launched K1")
+    if n["IQ"] != n["K1"]:
+        raise AssertionError(f"the main path launched the operand kernel {n['IQ']} times in "
+                             f"{n['K1']} blocks")
     log(f"e2e Receiver(device='cuda'), default config: {len(errs_a)} fixes, best "
         f"{min(errs_a):.2f} m, last {errs_a[-1]:.2f} m; {wall_a:.2f} s wall for "
         f"{recv.source.seconds_consumed:.0f} s of signal; launches {n}; "

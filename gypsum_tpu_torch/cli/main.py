@@ -290,22 +290,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def libraries(args) -> list[str]:
     """The compiled libraries the command will load, told from its command,
-    flags and capture sidecars alone (``core/aot.py``): K1 for every
-    receiver (``replay``, ``rtk`` on captures), K2 for ``acquire --deep``,
+    flags and capture sidecars alone (``core/aot.py``): the tracker's
+    (``aot.TRACKER_LIBRARIES``) for every receiver (``replay``, ``rtk`` on
+    captures), K2 for ``acquire --deep``,
     and what each capture's source loads (``cli/sources.py:capture_libraries``).
     ``synth`` and ``rtk`` on RINEX files load none; ``acquire`` tracks
-    nothing, so it loads no K1."""
+    nothing, so it loads neither."""
     if args.command == "synth":
         return []
     if args.command == "rtk":
         if args.base_rinex or args.rover_rinex or not (args.base_file and args.rover_file):
             return []
-        names = ["fixup"]
+        names = list(aot.TRACKER_LIBRARIES)
         for path in (args.base_file, args.rover_file):
             names += capture_libraries(path, args.sample_rate, args.format, PROCESSING_RATE)
         return list(dict.fromkeys(names))
     if args.command == "replay":
-        names = ["fixup"]
+        names = list(aot.TRACKER_LIBRARIES)
     else:
         names = ["peak_reduce"] if args.deep else []
     for path in filter(None, (args.glonass_file, getattr(args, "glonass_l2_file", None))):

@@ -50,6 +50,11 @@ _logger = logging.getLogger(__name__)
 #: the CUDA sources under ``csrc/``, by file stem).
 NATIVE_READER = "iqreader"
 
+#: The two-phase tracker's libraries (``track/matmul.py``), which every
+#: receiver loads: the samples' operand, then K1 (left out with the scan
+#: fixup backend).
+TRACKER_LIBRARIES = ("iq_operand", "fixup")
+
 #: How many times paths asked for each library since the counts were last
 #: cleared, and how many times each was fetched through ``library``. A run
 #: can hold what it preloaded against what it used (``chip_smoke.py``).

@@ -32,13 +32,14 @@ import math
 import numpy as np
 import torch
 
+from gypsum_tpu_torch.core import aot
 from gypsum_tpu_torch.core.config import TrackingConfig
 from gypsum_tpu_torch.core.constants import GPS_L1_FREQUENCY_HZ
 from gypsum_tpu_torch.core.device import resolve_device
-from gypsum_tpu_torch.core.planes import dequantize_planes, to_complex
 from gypsum_tpu_torch.obs import spans
 from gypsum_tpu_torch.ops import fixup as fx
 from gypsum_tpu_torch.ops.correlate import ascending_lag_rows, lag_window
+from gypsum_tpu_torch.ops.iq_operand import iq_operand
 
 
 def lag_window_size(config: TrackingConfig, samples_per_prn: int) -> int:
@@ -78,14 +79,15 @@ def make_matmul_track_block_fn(
 
     Returns ``f(state, samples_block, replicas_wide) -> (state', outputs)``:
     ``state`` is a TrackState of [S] leaves (numpy or tensors),
-    ``samples_block`` [B, L, 2] planes of any dtype or [B, L] complex (farm:
-    [B, N, L, 2] / [B, N, L]) on ``device``, ``replicas_wide`` [S, >= 2L + 2K]
+    ``samples_block`` [B, L, 2] planes or [B, L] complex (farm:
+    [B, N, L, 2] / [B, N, L]) on ``device`` (on a CUDA device int8, uint8,
+    int16 or float32 planes, or complex64), ``replicas_wide`` [S, >= 2L + 2K]
     float32 on ``device``; the new state has [S] tensor leaves and the
     outputs are a TrackBlockOutputs of [B, S] tensors. ``f.packed`` returns
     the outputs as one [B, N_OUT, S] float32 tensor instead. ``f.libraries``
-    names the kernels it launches on a CUDA device (K1's source unless
-    ``fixup_backend="scan"``), which ``track/loop.py:make_track_block_fn``
-    preloads.
+    names the kernels it launches on a CUDA device (the samples' operand
+    kernel, and K1's unless ``fixup_backend="scan"``), which
+    ``track/loop.py:make_track_block_fn`` preloads.
     """
     from gypsum_tpu_torch.track.loop import (
         TrackState,
@@ -146,10 +148,9 @@ def make_matmul_track_block_fn(
         rows = ascending_lag_rows(lag_window(replicas_wide, cpi0, length, k_eff), length)
         return rows, cpi0  # [S, NLE, L]
 
-    def wipe(rows: torch.Tensor, state: TrackState, chunks: torch.Tensor):
-        """Phase 1's operands: the block-start wipeoff folded into the lag
-        rows, w_r, w_i [S, L, NLE], and the samples' planes cr, ci [B, L]
-        (farm: [B, N, L]), in the product's precision."""
+    def wipe(rows: torch.Tensor, state: TrackState):
+        """Phase 1's W operands: the block-start wipeoff folded into the lag
+        rows, w_r, w_i [S, L, NLE], in the product's precision."""
         phase0 = state.carrier_phase[:, None] + (
             2.0 * math.pi * (state.doppler + state.carrier_offset)[:, None] * l_over_fs[None, :]
         )  # [S, L]
@@ -157,36 +158,35 @@ def make_matmul_track_block_fn(
         rows_lj = rows.transpose(1, 2)  # [S, L, NLE]
         w_r = to_mm(rows_lj * c0[:, :, None])
         w_i = to_mm(-rows_lj * s0[:, :, None])
-        cr = to_mm(chunks.real.contiguous())
-        ci = to_mm(chunks.imag.contiguous())
-        return cr, ci, w_r, w_i
+        return w_r, w_i
 
-    def product(cr, ci, w_r, w_i):
+    def product(c, w_r, w_i):
         """corr = c . W with complex c and W: re = cr.wr - ci.wi,
         im = cr.wi + ci.wr; all four products as ONE matmul
-        [2B, L] x [L, 2 S NLE]."""
-        b_count, s_count = cr.shape[0], w_r.shape[0]
+        [2B, L] x [L, 2 S NLE], c = [cr; ci] the stream's operand rows."""
+        b_count, s_count = c.shape[0] // 2, w_r.shape[0]
         w = torch.stack([w_r, w_i]).permute(2, 0, 1, 3).reshape(length, -1)
-        prod = _mm_f32(torch.cat([cr, ci]), w).reshape(2, b_count, 2, s_count, n_lags_eff)
+        prod = _mm_f32(c, w).reshape(2, b_count, 2, s_count, n_lags_eff)
         return prod[0, :, 0] - prod[1, :, 1], prod[0, :, 1] + prod[1, :, 0]
 
-    def products(cr, ci, w_r, w_i):
+    def products(operand, w_r, w_i):
         """Phase 1's correlations for every millisecond at once: corr_r,
-        corr_i [B, S, NLE] float32."""
+        corr_i [B, S, NLE] float32, from the samples' operand [N, 2B, L]
+        (``ops/iq_operand.py``; N = 1 for a single stream)."""
         if farm_groups is None:
             spans.count("phase1.products")
-            corr_r, corr_i = product(cr, ci, w_r, w_i)
+            corr_r, corr_i = product(operand[0], w_r, w_i)
         else:
             # One product a stream, its channels laid out as the
             # single-stream tracker lays them out: a stream's channels get
             # the sums they would get tracked alone (the same product
             # shapes), whatever the other streams hold.
             spans.count("phase1.products", len(farm_groups))
-            shape = (cr.shape[0], w_r.shape[0], n_lags_eff)
-            corr_r = torch.empty(shape, dtype=torch.float32, device=cr.device)
+            shape = (operand.shape[1] // 2, w_r.shape[0], n_lags_eff)
+            corr_r = torch.empty(shape, dtype=torch.float32, device=operand.device)
             corr_i = torch.empty_like(corr_r)
             for n, idx in farm_groups:
-                corr_r[:, idx], corr_i[:, idx] = product(cr[:, n], ci[:, n], w_r[idx], w_i[idx])
+                corr_r[:, idx], corr_i[:, idx] = product(operand[n], w_r[idx], w_i[idx])
         return corr_r.contiguous(), corr_i.contiguous()
 
     def phase1(state, samples_block: torch.Tensor, replicas_wide: torch.Tensor):
@@ -195,15 +195,12 @@ def make_matmul_track_block_fn(
         [B, S, NLE]."""
         with spans.span("phase1.inputs"):
             state = device_state(state, device)
-            if samples_block.is_complex():
-                chunks = samples_block.to(torch.complex64)
-            else:
-                chunks = to_complex(dequantize_planes(samples_block, input_offset))
+            operand = iq_operand(samples_block, input_offset, bf16)  # [N, 2B, L]
         with spans.span("phase1.wipe"):
             rows, cpi0 = build_rows(replicas_wide, state)
-            operands = wipe(rows, state, chunks)
+            w_r, w_i = wipe(rows, state)
         with spans.span("phase1.products"):
-            corr_r, corr_i = products(*operands)  # [B, S, NLE]
+            corr_r, corr_i = products(operand, w_r, w_i)  # [B, S, NLE]
 
         # The phase-1 wipeoff reference is the block-start state.
         f32 = torch.float32
@@ -228,5 +225,7 @@ def make_matmul_track_block_fn(
     # against its plain version on real correlations.
     track_block.phase1 = phase1
     track_block.fixup_params = params
-    track_block.libraries = () if backend == "scan" else (fx.FIXUP_KERNEL.source,)
+    track_block.libraries = tuple(
+        name for name in aot.TRACKER_LIBRARIES
+        if not (backend == "scan" and name == fx.FIXUP_KERNEL.source))
     return track_block

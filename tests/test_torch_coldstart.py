@@ -262,7 +262,7 @@ def test_prebuild_entry_builds_every_source(monkeypatch, capsys):
     out = capsys.readouterr().out
     sources = sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu"))
     assert {"fixup.cu", "peak_reduce.cu", "track_block.cu", "wipeoff_lag.cu",
-            "fir_decimate.cu"} <= set(sources)
+            "fir_decimate.cu", "iq_operand.cu"} <= set(sources)
     for name in sources:
         assert f"csrc/{name}: built in 1.50 s" in out
     assert "native/iqreader.cpp: already built" in out
@@ -277,8 +277,8 @@ def _track(**kw):
 
 
 SITES = {
-    "K1 two-phase tracker": (_track(), ["fixup"]),
-    "K1 scan fixup backend": (_track(fixup_backend="scan"), []),
+    "K1 two-phase tracker": (_track(), list(aot.TRACKER_LIBRARIES)),
+    "K1 scan fixup backend": (_track(fixup_backend="scan"), ["iq_operand"]),
     "K3 whole-block tracker": (_track(use_pallas_block_tracker=True), ["track_block"]),
     "K4 scan tracker": (_track(use_matmul_tracker=False, use_pallas_block_tracker=False,
                                use_pallas_correlator=True), ["wipeoff_lag"]),
@@ -290,6 +290,15 @@ SITES = {
         ArraySampleSource(np.zeros(4092 * 4, np.complex64), 4.092e6), FS, device="cpu"),
         ["fir_decimate"]),
 }
+
+
+def test_tracker_libraries_name_the_kernels_the_tracker_launches():
+    """The one list of the two-phase tracker's libraries, which the tracker
+    and the CLI preload, holds the sources of the kernels it launches."""
+    from gypsum_tpu_torch.ops.fixup import FIXUP_KERNEL
+    from gypsum_tpu_torch.ops.iq_operand import IQ_OPERAND_KERNEL
+
+    assert aot.TRACKER_LIBRARIES == (IQ_OPERAND_KERNEL.source, FIXUP_KERNEL.source)
 
 
 @pytest.mark.parametrize("site", list(SITES))
@@ -313,21 +322,24 @@ def captures(tmp_path):
     return tmp_path
 
 
+# The two-phase tracker's kernels, which every receiver loads.
+TRACKER = list(aot.TRACKER_LIBRARIES)
+
 CLI = {
-    "replay npy": ("replay --file {d}/c.npy", ["fixup"]),
-    "replay npy at 4.092 Msps by sidecar": ("replay --file {d}/fast.npy", ["fixup", "fir_decimate"]),
-    "replay npy at a rational rate": ("replay --file {d}/c.npy --sample-rate 10e6", ["fixup"]),
+    "replay npy": ("replay --file {d}/c.npy", TRACKER),
+    "replay npy at 4.092 Msps by sidecar": ("replay --file {d}/fast.npy", [*TRACKER, "fir_decimate"]),
+    "replay npy at a rational rate": ("replay --file {d}/c.npy --sample-rate 10e6", TRACKER),
     "replay raw int8 by sidecar": ("replay --file {d}/raw.i8",
-                                   ["fixup", aot.NATIVE_READER, "fir_decimate"]),
-    "replay raw float32 by sidecar": ("replay --file {d}/raw.f32", ["fixup", aot.NATIVE_READER]),
+                                   [*TRACKER, aot.NATIVE_READER, "fir_decimate"]),
+    "replay raw float32 by sidecar": ("replay --file {d}/raw.f32", [*TRACKER, aot.NATIVE_READER]),
     "replay hackrf format": ("replay --file {d}/h.bin --format hackrf",
-                             ["fixup", aot.NATIVE_READER, "fir_decimate"]),
+                             [*TRACKER, aot.NATIVE_READER, "fir_decimate"]),
     "replay glonass at 8.184 Msps": ("replay --glonass-file {d}/g.npy --glonass-rate 8184000",
-                                     ["fixup", "fir_decimate"]),
+                                     [*TRACKER, "fir_decimate"]),
     "acquire": ("acquire --file {d}/c.npy", []),
     "acquire --deep": ("acquire --file {d}/c.npy --deep", ["peak_reduce"]),
     "rtk captures": ("rtk --base-file {d}/b.npy --rover-file {d}/r.npy --base-lla 1 2 3",
-                     ["fixup"]),
+                     TRACKER),
     "rtk rinex": ("rtk --base-rinex b --rover-rinex r --nav n --base-lla 1 2 3", []),
     "synth": ("synth --out {d}/s.npy", []),
 }
@@ -350,7 +362,7 @@ def test_cli_starts_its_preload_before_the_command(tmp_path, monkeypatch, fresh)
     np.save(capture, np.zeros(L * 20, np.complex64))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         cli_main(["replay", "--file", str(capture)])
-    assert asked[0] == (["fixup"], "cuda")
+    assert asked[0] == (TRACKER, "cuda")
 
 
 # ------------------------- (d) the shared track program, against the JAX package

@@ -77,7 +77,8 @@ def test_source_has_no_jax_or_reference_import(path):
 
 
 def test_cuda_kernels_are_in_the_repo():
-    for name in ("fixup", "peak_reduce", "fir_decimate", "wipeoff_lag", "track_block"):
+    for name in ("fixup", "peak_reduce", "fir_decimate", "wipeoff_lag", "track_block",
+                 "iq_operand"):
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         assert 'extern "C"' in src and "cudaGetLastError" in src
         assert "__global__" in src
