@@ -15,11 +15,17 @@ The benchmark's own generators, independent of the program under test:
 A replica is one code period at ``samples_per_ms`` samples: sample l holds
 chip floor(l * chips / samples_per_ms), as +1 for a one chip and -1 for a
 zero chip.
+
+``BANDS`` is the one table of the bands a configuration may name: the
+generator, the farm and the reference all read it, and any other band
+raises (``band``).
 """
 
 from __future__ import annotations
 
 import functools
+from collections.abc import Callable
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -78,14 +84,55 @@ def glonass_code() -> np.ndarray:
     return code
 
 
-def signal_codes(band: str, signals: list[int]) -> np.ndarray:
-    """[len(signals), chips] int8 {0, 1}: GPS PRNs, or GLONASS frequency
-    numbers (every GLONASS channel carries the same code)."""
-    if band == "gps_l1ca":
-        return gps_codes()[np.asarray(signals) - 1]
-    if band == "glonass_l1of":
-        return np.tile(glonass_code(), (len(signals), 1))
-    raise ValueError(f"unknown band {band!r}")
+@dataclass(frozen=True)
+class Band:
+    """A band's signals (GPS PRNs, GLONASS frequency numbers), the row of
+    ``table()`` that holds each one's code, and the channel id the port gives
+    each one (``gypsum_tpu_torch/signal/prn.py``: PRN n is id n, GLONASS
+    frequency number k is id 208 + k)."""
+
+    signals: tuple[int, ...]
+    table: Callable[[], np.ndarray]  # [rows, chips] int8 {0, 1}
+    rows: tuple[int, ...]
+    port_ids: tuple[int, ...]
+
+    def _index(self, signals) -> np.ndarray:
+        place = {s: i for i, s in enumerate(self.signals)}
+        arr = np.asarray(signals)
+        try:
+            return np.array([place[int(s)] for s in arr.reshape(-1)], dtype=np.int64).reshape(arr.shape)
+        except KeyError as e:
+            raise ValueError(f"signal {e.args[0]} is not one of the band's {self.signals}") from None
+
+    def code_rows(self, signals) -> np.ndarray:
+        """The row of ``table()`` of each signal, in the signals' shape."""
+        return np.asarray(self.rows, dtype=np.int64)[self._index(signals)]
+
+    def port_id(self, signals) -> np.ndarray:
+        """The port's channel id of each signal, in the signals' shape."""
+        return np.asarray(self.port_ids, dtype=np.int64)[self._index(signals)]
+
+
+BANDS = {
+    "gps_l1ca": Band(signals=tuple(range(1, 33)), table=gps_codes, rows=tuple(range(32)),
+                     port_ids=tuple(range(1, 33))),
+    # Every GLONASS L1OF satellite sends the same code.
+    "glonass_l1of": Band(signals=tuple(range(-7, 7)), table=lambda: glonass_code()[None, :],
+                         rows=(0,) * 14, port_ids=tuple(range(201, 215))),
+}
+
+
+def band(name: str) -> Band:
+    """The entry of ``BANDS``; an unknown band raises, naming the known ones."""
+    if name not in BANDS:
+        raise ValueError(f"unknown band {name!r} (known: {', '.join(sorted(BANDS))})")
+    return BANDS[name]
+
+
+def signal_codes(band_name: str, signals: list[int]) -> np.ndarray:
+    """[len(signals), chips] int8 {0, 1}: each signal's code."""
+    b = band(band_name)
+    return b.table()[b.code_rows(signals)]
 
 
 def replicas(codes: np.ndarray, samples_per_ms: int) -> np.ndarray:

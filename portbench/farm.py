@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from portbench import generator
+from portbench import codes, generator
 
 N_OUT = 11
 
@@ -65,12 +65,9 @@ class Farm:
                                       self.n_channels, soc, device=self.device)
         self.packed = wrap(fn.packed) if wrap else fn.packed
         self.TrackState = TrackState
-        if caps.band == "glonass_l1of":
-            family = prn.GLONASS_PRN_IDS
-            ids = [prn.glonass_prn_id(int(k)) for k in caps.signals.reshape(-1)]
-        else:
-            family = prn.ALL_PRN_IDS
-            ids = [int(p) for p in caps.signals.reshape(-1)]
+        band = codes.band(caps.band)
+        family = band.port_ids
+        ids = [int(p) for p in band.port_id(caps.signals.reshape(-1))]
         reps = prn.replica_table(caps.samples_per_ms, family)
         k = cfg.lag_window_half_width
         wide = np.concatenate([reps, reps, reps[:, : 2 * k]], axis=1).astype(np.float32)

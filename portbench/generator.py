@@ -95,12 +95,8 @@ def make_captures(config: dict, traffic: dict, seed: int) -> Captures:
     ring = capture_ms // block_ms
     pool_signals = np.asarray(config["signals"])
     signals = np.stack([rng.choice(pool_signals, n_sats, replace=False) for _ in range(n_caps)])
-    if band == "gps_l1ca":
-        table = codegen.gps_codes()
-        code_rows = signals - 1
-    else:
-        table = codegen.glonass_code()[None, :]
-        code_rows = np.zeros_like(signals)
+    codes = codegen.band(band)
+    table, code_rows = codes.table(), codes.code_rows(signals)
     offset = signals * float(config["fdma_spacing_hz"])
     carrier = float(config["carrier_hz"]) + offset
     dmax = float(traffic["doppler_hz"])

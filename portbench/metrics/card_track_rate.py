@@ -11,9 +11,10 @@ card across hosts, against under 1 % for the kernels).
 
 The profiler now and then loses a record (one K1 record of 734 blocks in
 one run on the card), which leaves a block's kernel out of the busy time.
-K1 runs once a block, so its count of records measures the loss: more than
+The kernel that the cell's traffic kind runs once a block (``block_kernel``:
+K1 in the farm) has its count of records measure the loss: more than
 ``LOST`` of the blocks without one, or more records than blocks, and the
-reading is None."""
+reading is None; so it is where the kind names no such kernel."""
 
 from portbench import trace
 
@@ -23,9 +24,10 @@ LOST = 0.005
 def read(ctx):
     session, st, sh = ctx["session"], ctx["stats"], ctx["shape"]
     blocks = st["traced_blocks"]
-    if session is None or not session.events or not blocks or blocks != st["blocks"]:
+    once = ctx.get("block_kernel")
+    if session is None or not session.events or not blocks or blocks != st["blocks"] or not once:
         return None
-    if not (1.0 - LOST) * blocks <= trace.k1_count(session.events) <= blocks:
+    if not (1.0 - LOST) * blocks <= trace.kernel_count(session.events, once) <= blocks:
         return None
     computing = [e for e in session.events if not trace.is_host_copy(e)]
     return blocks * sh["channels"] * sh["block_ms"] / 1e3 / trace.busy_s(computing)

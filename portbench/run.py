@@ -2,16 +2,18 @@
 
     python3 -m portbench --workload gps-farm64 --seed 7 --seconds 10 --trace 0
 
-Set-up (``setup_s``, from the first line of this module): import torch and
-the port, make the cell's pool of captures on the card from the seed, build
-the farm entry, warm it on the run's first blocks. Then the window: blocks
-for ``--seconds`` of host time at depth 1, every block's outputs copied to
-the host. With ``--trace 1`` a stretch of the window runs under the
-device profiler and the per-layer metrics are read from it; with
-``--trace 0`` the whole window does, where the cell has an end-to-end
-metric read from the device trace. After the
-window: the peak of device memory, the program's state freed, and the kept
-blocks judged against the plain reference (``compare.py``).
+The cell's traffic kind (``kinds/<kind>.py``, which ``cells.load`` resolves
+from the mix's ``"kind"``) builds and drives the system under test and says
+what is compared; this module keeps what every cell shares. Set-up
+(``setup_s``, from the first line of this module): import torch and the
+port, the kind's set-up from the seed (for the farm: the cell's pool of
+captures made on the card, the farm entry built), then the kind's warm
+blocks. Then the window: the kind's blocks for ``--seconds`` of host time.
+With ``--trace 1`` a stretch of the window runs under the device profiler
+and the per-layer metrics are read from it; with ``--trace 0`` the whole
+window does, where the cell has an end-to-end metric read from the device
+trace. After the window: the peak of device memory, the program's state
+freed, and the kind's compared numbers judged against the cell's limits.
 
 The last line of standard output is one JSON object (README.md); the last
 lines of standard error are the compared numbers beside their limits.
@@ -35,8 +37,7 @@ ROOT = Path(__file__).resolve().parent.parent
 CACHES = {"TRITON_CACHE_DIR": "build/triton", "TORCH_EXTENSIONS_DIR": "build/torch_extensions"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "gypsum_tpu"}
 WARM_BLOCKS = 3
-KEEP_BLOCKS = 8  # blocks of each window judged against the reference
-TRACE_FROM = 5  # the traced stretch: window blocks TRACE_FROM .. TRACE_FROM + ring - 1
+TRACE_FROM = 5  # the traced stretch: window blocks TRACE_FROM .. TRACE_FROM + trace_span - 1
 
 
 def log(msg: str) -> None:
@@ -57,7 +58,6 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     import numpy as np
     import torch
 
-    from portbench import compare, farm, generator
     from portbench import trace as tracing
 
     dev = torch.device(device)
@@ -66,16 +66,8 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     def mark(name):
         split[name] = time.perf_counter() - t_start - sum(split.values())
 
-    caps = generator.make_captures(cell.config, cell.traffic, seed)
-    if dev.type == "cuda":
-        torch.cuda.init()
-    mark("cuda")
-    pool = generator.make_pool(caps, dev)
-    mark("pool")
-    system = farm.Farm(cell.config, cell.traffic, caps, pool, dev, wrap)
-    window = farm.Window(system, KEEP_BLOCKS, seed)
-    mark("entry")
-    window.warm(WARM_BLOCKS)
+    system = cell.kind.setup(cell, seed, dev, wrap, mark)
+    system.warm(WARM_BLOCKS)
     mark("warm")
     # A device-trace end-to-end metric is read over the whole window.
     whole = (not trace and dev.type == "cuda"
@@ -83,7 +75,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     session = tracing.Session() if trace or whole else None
     if session is not None:  # the profiler's first start, outside the window
         session.start()
-        window.warm(1)
+        system.warm(1)
         session.stop()
         session.read()
         session = tracing.Session()
@@ -92,31 +84,24 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     setup_s = time.perf_counter() - t_start
     mark("profiler")
     log("setup split (s): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    traced = (0, math.inf) if whole else (TRACE_FROM, TRACE_FROM + caps.ring)
+    traced = (0, math.inf) if whole else (TRACE_FROM, TRACE_FROM + system.trace_span)
     t_window = time.perf_counter()
-    stats = window.run(seconds, session, traced)
+    stats = system.run(seconds, session, traced)
     after = {"profiler stop": time.perf_counter() - t_window - stats["wall_s"]}
     peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" else 0
     t_read = time.perf_counter()
     if session is not None:
         session.read()
     after["trace read"] = time.perf_counter() - t_read
-    kept, restart_mask = window.kept, system.restart_mask
     system.release()
-    del window
     t_ref = time.perf_counter()
-    values = compare.numbers(cell.config, cell.traffic, caps, pool, kept, restart_mask, dev, raw)
-    correct = compare.judge(values, cell.limits)
+    values = system.numbers(raw)
+    correct = all(math.isfinite(values[n]) and values[n] <= cell.limits[n] for n in system.names)
     after["reference"] = time.perf_counter() - t_ref
     log("after the window (s): " + ", ".join(f"{k} {v:.3f}" for k, v in after.items()))
 
-    n_streams, per = caps.signals.shape
-    ctx = {
-        "setup_s": setup_s, "stats": stats, "session": session,
-        "shape": {"block_ms": caps.block_ms, "channels": n_streams * per, "streams": n_streams,
-                  "samples_per_ms": caps.samples_per_ms,
-                  "k_half": cell.config["tracking"]["lag_window_half_width"]},
-    }
+    ctx = {"setup_s": setup_s, "stats": stats, "session": session, "shape": system.shape,
+           "block_kernel": system.block_kernel}
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = cell.reader(m["name"])(ctx)
@@ -132,9 +117,12 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     if whole:
         per_block = 1e3 / max(stats["traced_blocks"], 1)
         copies = [e for e in session.events if tracing.is_host_copy(e)]
-        log(f"profiler check: {stats['traced_blocks']} blocks traced, {tracing.k1_count(session.events)} "
-            f"K1 records, device busy by the trace {tracing.busy_s(session.events) * per_block} ms a "
-            f"block, of which copies to and from the host {tracing.busy_s(copies) * per_block} ms")
+        once = system.block_kernel
+        counted = (f"{tracing.kernel_count(session.events, once)} records of {once} (once a block)"
+                   if once else "no kernel that runs once a block")
+        log(f"profiler check: {stats['traced_blocks']} blocks traced, {counted}, device busy by the "
+            f"trace {tracing.busy_s(session.events) * per_block} ms a block, of which copies to and "
+            f"from the host {tracing.busy_s(copies) * per_block} ms")
     if trace and session.events:
         blocks = max(stats["traced_blocks"], 1)
         per_block = tracing.busy_s(session.events) * 1e3 / blocks
@@ -146,10 +134,11 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         result["device"]["window_s"] = session.window_s()
         result["breakdown"] = {"device_ops": tracing.device_ops(session.events),
                                "idle_gaps": tracing.idle_gaps(session.events)}
-    result["held_share"] = values["held_share"]
+    # Values the kind reports but does not judge (the farm: held_share).
+    result.update({k: v for k, v in values.items() if k not in system.names})
     # Last key: every compared number beside its limit (null: not finite).
     result["checks"] = {n: {"value": values[n] if math.isfinite(values[n]) else None,
-                            "limit": cell.limits[n]} for n in compare.NAMES}
+                            "limit": cell.limits[n]} for n in system.names}
     return result
 
 

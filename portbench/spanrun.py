@@ -3,9 +3,11 @@
 
     python3 -m portbench.spanrun --workload gps-farm64 --seed 7 --seconds 10 --cost-pairs 4
 
-Set-up as ``run.py``'s (the pool from the seed, the farm entry, three warm
-blocks). Then ``--cost-pairs`` pairs of windows of ``--cost-seconds`` each,
-spans off and on in turns (off first in even pairs, on first in odd ones),
+Set-up as ``run.py``'s, through the farm's traffic kind
+(``kinds/farm_replay.py``: the pool from the seed, the farm entry), and
+three warm blocks; a cell of another kind does not run here. Then
+``--cost-pairs`` pairs of windows of ``--cost-seconds`` each, spans off and
+on in turns (off first in even pairs, on first in odd ones),
 before the profiler first starts: ``farm.issue_ms`` of each; and one window
 twice as long with spans off and on in turns block by block. Then the
 profiler's first start, and one window of ``--seconds`` with spans on and
@@ -27,7 +29,7 @@ import os  # noqa: E402
 import statistics  # noqa: E402
 import sys  # noqa: E402
 
-from portbench.run import CACHES, KEEP_BLOCKS, ROOT, TRACE_FROM, WARM_BLOCKS, log  # noqa: E402
+from portbench.run import CACHES, ROOT, TRACE_FROM, WARM_BLOCKS, log  # noqa: E402
 
 
 def spread(values: list[float]) -> float:
@@ -60,13 +62,11 @@ def execute(cell, seed: int, seconds: float, cost_pairs: int, cost_seconds: floa
 
     from gypsum_tpu_torch.obs import spans
     from gypsum_tpu_torch.ops.fixup import FIXUP_KERNEL
-    from portbench import farm, generator, hosttrace
+    from portbench import hosttrace
 
     dev = torch.device(device)
-    caps = generator.make_captures(cell.config, cell.traffic, seed)
-    pool = generator.make_pool(caps, dev)
-    system = farm.Farm(cell.config, cell.traffic, caps, pool, dev)
-    window = farm.Window(system, KEEP_BLOCKS, seed)
+    replay = cell.kind.setup(cell, seed, dev, None, lambda _name: None)
+    system, window = replay.system, replay.window  # the farm's own objects (``Replay``)
     window.warm(WARM_BLOCKS)
 
     cost = {"off": [], "on": []}
@@ -106,19 +106,16 @@ def execute(cell, seed: int, seconds: float, cost_pairs: int, cost_seconds: floa
         session = hosttrace.HostSession()
         torch.cuda.synchronize(dev)
     spans.enable()
-    stats = window.run(seconds, session, (TRACE_FROM, TRACE_FROM + caps.ring))
+    stats = window.run(seconds, session, (TRACE_FROM, TRACE_FROM + replay.trace_span))
     spans.disable()
     records, counters = spans.drain()
     if session is not None:
         session.read()
 
-    n_streams, per = caps.signals.shape
     ctx = {
         "setup_s": 0.0, "stats": stats, "session": session,
         "spans": {"records": records, "counters": counters},
-        "shape": {"block_ms": caps.block_ms, "channels": n_streams * per, "streams": n_streams,
-                  "samples_per_ms": caps.samples_per_ms,
-                  "k_half": cell.config["tracking"]["lag_window_half_width"]},
+        "shape": replay.shape, "block_kernel": replay.block_kernel,
     }
     metrics = {m["name"]: cell.reader(m["name"])(ctx) for m in cell.per_layer}
     metrics.update({name: read(ctx) for name, read in hosttrace.READINGS.items()})

@@ -18,7 +18,9 @@ def tiny_root(tmp: Path, band: str = "gps", name: str = "tiny", block_ms: int = 
     pb = Path(tmp) / "portbench"
     for d in ("configs", "traffic", "limits"):
         (pb / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(BENCH / "metrics", pb / "metrics", dirs_exist_ok=True)
+    for d in ("metrics", "kinds"):
+        shutil.copytree(BENCH / d, pb / d, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     cfg = json.loads((BENCH / "configs" / f"{CONFIGS[band]}.json").read_text())
     cfg.update(name=name, streams=2, channels_per_stream=3)
     cfg["tracking"]["block_size_ms"] = block_ms

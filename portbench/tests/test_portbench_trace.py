@@ -98,7 +98,8 @@ def test_card_rate_over_the_whole_window():
     session.events = events
     shape = {"block_ms": 1000, "channels": 768}
     read = _reader("card_track_rate")
-    ctx = {"session": session, "stats": {"blocks": 2, "traced_blocks": 2}, "shape": shape}
+    ctx = {"session": session, "stats": {"blocks": 2, "traced_blocks": 2}, "shape": shape,
+           "block_kernel": trace.K1_KERNEL}
     assert read(ctx) == pytest.approx(2 * 768 * 1.0 / 300e-6)
     assert read({**ctx, "stats": {"blocks": 3, "traced_blocks": 3}}) is None  # 1 of 3 K1 lost
     # One K1 record lost in 300 blocks is read; two are not.
@@ -111,6 +112,8 @@ def test_card_rate_over_the_whole_window():
     session.events = events
     assert read({**ctx, "stats": {"blocks": 3, "traced_blocks": 2}}) is None  # part of the window
     assert read({**ctx, "session": None}) is None
+    assert read({**ctx, "block_kernel": None}) is None  # no kernel to count the loss by
+    assert read({**ctx, "block_kernel": "gemm"}) == pytest.approx(2 * 768 * 1.0 / 300e-6)
     wall = {"stats": {"blocks": 2, "wall_s": 0.5, "latency_s": [0.01 * i for i in range(1, 21)]},
             "shape": shape}
     assert _reader("host_track_rate")(wall) == 2 * 768 / 0.5

@@ -6,8 +6,9 @@ memsets: no host operators, whose recording would slow the host that paces
 the card); its records are read from the profiler's results in memory, so
 nothing is written to disk. CUDA events around each traced block time the
 same stretch on the card's own clock, so a record the profiler loses shows
-as a gap between the two (the run's "profiler check" line); K1 runs once a
-block, so its count of records is a second check (``k1_count``).
+as a gap between the two (the run's "profiler check" line); a kernel that
+runs once a block (the traffic kind's ``block_kernel``: K1 in the farm) has
+its count of records as a second check (``kernel_count``).
 """
 
 from __future__ import annotations
@@ -164,8 +165,9 @@ def is_host_copy(e: DeviceEvent) -> bool:
     return any(k in e.name for k in ("DtoH", "HtoD", "Pinned", "Pageable"))
 
 
-def k1_count(events: list[DeviceEvent]) -> int:
-    return sum(1 for e in events if K1_KERNEL in e.name)
+def kernel_count(events: list[DeviceEvent], kernel: str) -> int:
+    """The records whose name holds ``kernel``."""
+    return sum(1 for e in events if kernel in e.name)
 
 
 def k1_ms(ctx) -> float | None:
